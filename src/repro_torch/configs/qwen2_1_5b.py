@@ -1,0 +1,18 @@
+"""Qwen2-1.5B: dense GQA with QKV bias [arXiv:2407.10671]."""
+from repro_torch.configs.base import ModelConfig, ATTN, register
+
+CONFIG = register(ModelConfig(
+    name="qwen2-1.5b",
+    family="dense",
+    n_layers=28,
+    d_model=1536,
+    n_heads=12,
+    n_kv_heads=2,
+    d_ff=8960,
+    vocab=151_936,
+    head_dim=128,
+    block_pattern=(ATTN,),
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    source="arXiv:2407.10671; hf",
+))

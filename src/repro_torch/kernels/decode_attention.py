@@ -1,0 +1,129 @@
+"""Flash-decode attention: the Hopper kernel and its plain version.
+
+Replaces the TPU kernel ``repro/kernels/decode_attention.py::
+_decode_kernel`` (wrapper ``flash_decode_fwd``): one query token per
+sequence against a (B, Smax, Hkv, D) cache, all G q heads of one kv head
+in one cell, positions >= ``length`` masked and whole blocks beyond it
+skipped, (m, l, acc) carried over a sequential grid axis.
+
+On the H100 there is no sequential grid to carry the state, and B*Hkv
+blocks would leave most of the 132 SMs idle at serving batch sizes.  The
+kernel (``csrc/decode_attention.cu``) therefore splits [0, length) across
+blocks (flash-decoding): each (split, kv head, batch) block covers all G
+q heads, streams its keys through shared memory and writes fp32 partial
+(m, l, acc) to scratch this wrapper allocates; a second small kernel
+merges the splits per (batch, q head) in a fixed order, so the result is
+deterministic.  What bounds it: bytes.  Every key costs 4*D bytes of K and
+V for about 4*G*D FLOPs, so the kernel reads each valid cache row once,
+reads nothing at or beyond ``length``, and picks the number of splits so
+that B*Hkv*splits fills the card's SMs.
+
+``flash_decode_plain`` computes the same function in plain torch, as
+``repro.models.attention.decode_attention`` does: fp32 scores and
+softmax, p cast to the cache dtype, fp32 accumulation.  The CPU path and
+the on-card comparison use it; nothing on the CUDA main path does.  The
+kernel keeps p in fp32 as the TPU kernel does, so the two differ by the
+bf16 rounding of p only.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+HEAD_DIM = 128         # the head dim the kernel is built for
+MAX_GROUP = 8          # q heads per kv head the kernel holds (kMaxG)
+TILE = 64              # keys per tile (kBK)
+
+
+def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, length: int) -> torch.Tensor:
+    """q: (B,H,D); caches: (B,Smax,Hkv,D); length: valid cache length.
+    Returns (B,H,D) in q.dtype."""
+    B, H, D = q.shape
+    Hkv = k_cache.shape[2]
+    G = H // Hkv
+    qr = q.reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bshd->bhgs", qr.float(), k_cache.float()) \
+        * (D ** -0.5)
+    valid = torch.arange(k_cache.shape[1], device=q.device) < length
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def plan_splits(batch: int, n_kv_heads: int, length: int, n_sms: int
+                ) -> tuple:
+    """(n_splits, keys_per_split): enough splits that batch * n_kv_heads *
+    n_splits covers the ``n_sms`` SMs, each split a whole number of
+    tiles, and no split empty."""
+    n_tiles = max(1, -(-length // TILE))
+    want = max(1, -(-n_sms // (batch * n_kv_heads)))
+    tiles_per_split = max(1, n_tiles // want)
+    n_splits = -(-n_tiles // tiles_per_split)
+    return n_splits, tiles_per_split * TILE
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("decode_attention")
+    fn = lib.flash_decode_fwd_bf16
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, length: int) -> torch.Tensor:
+    """Launch the split and combine kernels on the current stream.  Takes
+    a bf16 CUDA q (B,H,D) and contiguous bf16 CUDA caches (B,Smax,Hkv,D),
+    D = ``HEAD_DIM``, H/Hkv <= ``MAX_GROUP`` and 1 <= length <= Smax;
+    raises on anything else."""
+    B, H, D = q.shape
+    Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if not t.is_cuda or t.dtype != torch.bfloat16:
+            raise ValueError(f"flash_decode kernel: {name} must be a bf16 "
+                             f"CUDA tensor, got {t.dtype} on {t.device}")
+    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
+            or k_cache.shape[0] != B or k_cache.shape[3] != D \
+            or H % Hkv or H // Hkv > MAX_GROUP or D != HEAD_DIM:
+        raise ValueError(f"flash_decode kernel: bad shapes q {tuple(q.shape)}"
+                         f" cache {tuple(k_cache.shape)}")
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError("flash_decode kernel: caches must be contiguous")
+    length = int(length)
+    if not 1 <= length <= Smax:
+        raise ValueError(f"flash_decode kernel: length {length} outside "
+                         f"[1, {Smax}]")
+    q = q.contiguous()
+    n_splits, keys_per_split = plan_splits(B, Hkv, length,
+                                           _sm_count(q.device))
+    out = torch.empty_like(q)
+    # one fp32 scratch buffer, sliced into partial acc, m and l
+    n = B * H * n_splits
+    scratch = torch.empty(n * (D + 2), dtype=torch.float32, device=q.device)
+    part_acc = scratch[:n * D]
+    part_m = scratch[n * D:n * (D + 1)]
+    part_l = scratch[n * (D + 1):]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = _lib().flash_decode_fwd_bf16(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+            part_acc.data_ptr(), B, H, Hkv, Smax, D, length, n_splits,
+            keys_per_split, stream)
+    build.check(err, "flash_decode_fwd_bf16")
+    return out

@@ -1,0 +1,172 @@
+"""Batched serving driver: prefill + decode with the measurement stack
+attached.
+
+Serving shape: a queue of synthetic requests is served in fixed-size
+batches.  Prefill runs per request batch; decode steps run against the
+batch's KV cache.  Every device-side step goes through
+``Profiler.dispatch`` and ends in ``torch.cuda.synchronize()`` inside the
+dispatch, so the profile's kernel times are device times.  Prompts come
+from the same ``numpy`` generator calls as the JAX package's driver, so
+both packages serve identical requests for one seed.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import steps as steps_mod
+from repro_torch.models import transformer as T
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on; CUDA unless the caller asks for
+    the CPU.  Raises when CUDA is asked for and there is none."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "on the CPU")
+    return dev
+
+
+def serve(cfg: ModelConfig, *, n_requests: int = 8, batch: int = 4,
+          prompt_len: int = 32, gen_len: int = 16, seed: int = 0,
+          profile_dir: Optional[str] = None, redundant_sync: bool = False,
+          opts: Optional[T.ModelOptions] = None, serving=None,
+          rid_prefix: str = "", device="cuda", params=None):
+    """Returns (generated tokens (n_requests, gen_len) int64 on ``device``,
+    profile paths).
+
+    ``params`` takes a parameter tree (e.g. from ``convert.params_from_jax``)
+    instead of the seeded initialisation.  ``serving`` (the always-on
+    serving profiler) is not ported yet and must be None; ``rid_prefix``
+    names its request windows and is accepted for signature parity.
+    """
+    if serving is not None:
+        raise NotImplementedError("repro_torch has no serving profiler yet; "
+                                  "pass serving=None")
+    dev = resolve_device(device)
+    opts = opts or T.ModelOptions(q_chunk=min(256, prompt_len),
+                                  kv_chunk=min(256, prompt_len))
+    if params is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = T.init_params(gen, cfg)
+    max_len = prompt_len + gen_len
+
+    prefill_fn = steps_mod.make_prefill_step(cfg, opts)
+    decode_fn = steps_mod.make_decode_step(cfg, opts)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    prof = None
+    if profile_dir:
+        from repro_torch.core.profiler import Profiler
+        prof = Profiler(profile_dir, tracing=True, rng_seed=seed)
+        prof.start()
+
+    # --- warm-up: build and load the kernels and run both steps once
+    # before the measured loop, so the first batch's dispatch does not
+    # carry the kernel build
+    warm_in = {"tokens": torch.zeros((batch, prompt_len), dtype=torch.long,
+                                     device=dev)}
+    logits, cache = prefill_fn(params, warm_in)
+    cache = _grow_cache(cache, max_len, prompt_len)
+    tok = logits.argmax(-1)
+    decode_fn(params, cache, prompt_len, token=tok)
+    sync()
+
+    rng = np.random.default_rng(seed)
+    outs = []
+    n_batches = (n_requests + batch - 1) // batch
+    for _ in range(n_batches):
+        toks = torch.from_numpy(
+            rng.integers(0, cfg.vocab, (batch, prompt_len), np.int32)
+        ).to(dev, torch.long)
+        batch_in = {"tokens": toks}
+        # --- prefill ------------------------------------------------------
+        if prof is not None:
+            with prof.dispatch("kernel", "prefill", stream=0,
+                               module_id=None):
+                logits, cache = prefill_fn(params, batch_in)
+                sync()
+        else:
+            logits, cache = prefill_fn(params, batch_in)
+        # cache is sized prompt_len by prefill; decode needs max_len slots
+        cache = _grow_cache(cache, max_len, prompt_len)
+        tok = logits.argmax(-1)
+        gen = [tok]
+        # --- decode -------------------------------------------------------
+        for t in range(gen_len - 1):
+            pos = prompt_len + t
+            if prof is not None:
+                with prof.dispatch("kernel", "decode_step", stream=0,
+                                   module_id=None):
+                    logits, cache = decode_fn(params, cache, pos, token=tok)
+                    sync()
+                if redundant_sync:
+                    # a sync with no kernel between it and the previous
+                    # sync, found by diff = sync - kernels
+                    with prof.dispatch("sync", "device_sync", stream=0):
+                        sync()
+                    with prof.dispatch("sync", "device_sync", stream=0):
+                        sync()
+            else:
+                logits, cache = decode_fn(params, cache, pos, token=tok)
+            tok = logits.argmax(-1)
+            gen.append(tok)
+        outs.append(torch.stack(gen, dim=1))
+    paths = None
+    if prof is not None:
+        prof.flush()
+        paths = prof.write()
+        prof.stop()
+    return torch.cat(outs, dim=0)[:n_requests], paths
+
+
+def _grow_cache(cache, max_len: int, cur_len: int):
+    """Pad prefill KV caches out to max_len slots (attention layers only)."""
+    def grow(name, leaf):
+        if name in ("k", "v") and leaf.dim() == 5 and \
+                leaf.shape[2] == cur_len:
+            out = torch.zeros(leaf.shape[:2] + (max_len,) + leaf.shape[3:],
+                              dtype=leaf.dtype, device=leaf.device)
+            out[:, :, :cur_len] = leaf
+            return out
+        return leaf
+    return {e: {name: grow(name, leaf) for name, leaf in c.items()}
+            for e, c in cache.items()}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--profile-dir", default=None)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    t0 = time.monotonic()
+    toks, paths = serve(cfg, n_requests=args.requests, batch=args.batch,
+                        prompt_len=args.prompt_len, gen_len=args.gen_len,
+                        profile_dir=args.profile_dir, device=args.device)
+    dt = time.monotonic() - t0
+    n_tok = toks.shape[0] * toks.shape[1]
+    print(f"served {toks.shape[0]} requests x {toks.shape[1]} tokens "
+          f"in {dt:.1f}s ({n_tok / dt:.1f} tok/s)")
+    if paths:
+        print("profiles:", sorted(paths)[:4], "...")
+
+
+if __name__ == "__main__":
+    main()
