@@ -5,27 +5,31 @@
 Phases, each of which raises (non-zero exit, no result line) on failure:
 
 1. refuse to run without CUDA; print the card's name and power limit;
-2. build every CUDA kernel of the serving path from ``src/repro_torch/csrc``
+2. build every CUDA kernel of the serving paths from ``src/repro_torch/csrc``
    (one nvcc per source, in parallel) and print the build seconds;
-3. hold each kernel, through the wrapper the main path calls, against its
+3. hold each kernel, through the wrapper the main paths call, against its
    plain torch version on the card, in bf16, at the tolerance of the JAX
-   package's kernel tests (rtol = atol = 2e-2) and with each output row
-   within 2e-2 of its largest reference value;
-4. time each kernel, its plain version and one library call computing the
-   same function (a yardstick the port never calls), beside the least time
-   the card could take for the same work;
-5. serve qwen2-1.5b at full width and depth with seeded random weights
-   through ``repro_torch.launch.serve.serve`` under the port's profiler,
-   with every kernel launch counter set to 0 just before and read just
-   after; check token shape, launch counts and profile files, and read the
-   prefill/decode latencies back from the profile;
-6. check the output: replay every request batch outside ``serve``
-   (same tokens, every logit finite), and hold a 2-layer full-width model on
-   the card against the same bf16 weights run on the CPU through the
-   plain versions.
+   package's kernel tests (rtol = atol = 2e-2; the SSD scan's final state
+   at 1e-2) and with each output row within 2e-2 of its largest
+   reference value, at both models' shapes;
+4. serve qwen2-1.5b and then hymba-1.5b at full width and depth with
+   seeded random weights through ``repro_torch.launch.serve.serve`` under
+   the port's profiler, with every kernel launch counter set to 0 just
+   before each and read just after; check token shape, launch counts and
+   profile files, and read the prefill/decode latencies back from the
+   profile;
+5. check the output of each: replay every request batch outside ``serve``
+   (same tokens, every logit finite), and hold a 2-layer full-width model
+   on the card against the same bf16 weights run on the CPU through the
+   plain versions;
+6. time each kernel at each path's shapes, its plain version and one
+   library call computing the same function where there is one (a
+   yardstick the port never calls), beside the least time the card could
+   take for the same work; break a serving step's time down by device
+   kernel.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel and
+path; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -45,11 +49,22 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 TOL = dict(rtol=2e-2, atol=2e-2)
+STATE_TOL = dict(rtol=1e-2, atol=1e-2)   # SSD final state, tests/test_kernels.py
 ROW_TOL = 2e-2   # per row: max abs error over max |reference|
-# main-path shapes: qwen2-1.5b, batch 4, prompt 512, 32 generated tokens
-B, S, H, HKV, D = 4, 512, 12, 2, 128
-N_REQUESTS, GEN_LEN = 8, 32
-SMAX = S + GEN_LEN
+B, N_REQUESTS, GEN_LEN = 4, 8, 32
+# each serving path: its prompt, and the 2-layer CPU check's prompt and
+# window (hymba's reduced so that the ring wraps and the CPU side stays
+# small).  hymba's prompt of 1536 > window 1024 keeps the ring at 1024
+# slots through decode and puts a roll of 1536 % 1024 = 512 on the path.
+PATHS = {"qwen2-1.5b": dict(prompt=512, cpu_prompt=64, cpu_window=0),
+         "hymba-1.5b": dict(prompt=1536, cpu_prompt=192, cpu_window=128)}
+KERNELS = ("flash_attention", "flash_decode", "ssm_scan")
+SOURCES = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                               "src/repro/kernels/flash_attention.py:36"),
+           "flash_decode": ("src/repro_torch/csrc/decode_attention.cu",
+                            "src/repro/kernels/decode_attention.py:30"),
+           "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
+                        "src/repro/kernels/ssm_scan.py:34")}
 
 
 def card_line() -> str:
@@ -63,84 +78,130 @@ def card_line() -> str:
 def build_kernels() -> float:
     from repro_torch.kernels import build
     t0 = time.monotonic()
-    build.build(["flash_attention", "decode_attention"])
+    build.build(["flash_attention", "decode_attention", "ssm_scan"])
     return time.monotonic() - t0
 
 
-def _randn(shape, gen, scale=1.0):
+def _randn(shape, gen, scale=1.0, dtype=torch.bfloat16):
     return (torch.randn(shape, generator=gen, device="cuda") * scale
-            ).to(torch.bfloat16)
+            ).to(dtype)
 
 
-def _err(out, want) -> tuple:
-    """Hold ``out`` against ``want`` elementwise at TOL, and each row (the
-    last axis) at ROW_TOL of that row's largest |want|.  Attention over a
-    long, flat softmax gives outputs far below TOL's atol, so the row check
-    is what catches a wrong split merge there.  Returns (max abs error,
-    largest row ratio)."""
+def _err(out, want, tol=TOL, rows=True) -> tuple:
+    """Hold ``out`` against ``want`` elementwise at ``tol`` and, with
+    ``rows``, each row (the last axis) at ROW_TOL of that row's largest
+    |want|.  Attention over a long, flat softmax gives outputs far below
+    TOL's atol, so the row check is what catches a wrong split merge
+    there.  Returns (max abs error, largest row ratio)."""
     out, want = out.float(), want.float()
-    torch.testing.assert_close(out, want, **TOL)
+    torch.testing.assert_close(out, want, **tol)
     err = (out - want).abs().amax(-1)
     ratio = float((err / want.abs().amax(-1).clamp_min(1e-30)).max())
-    if ratio > ROW_TOL:
+    if rows and ratio > ROW_TOL:
         raise AssertionError(f"a row's max abs error is {ratio:.4f} of its "
                              f"largest value (limit {ROW_TOL})")
     return float(err.max()), ratio
 
 
+def _ssm_inputs(gen, b, s, nh, hd, st, decay=None, with_h0=False):
+    """The JAX kernel tests' draws: xv N*0.5, logdecay -softplus(N) (or
+    the constant ``decay``), B/C N*0.3, h0 N*0.1 (fp32)."""
+    xv = _randn((b, s, nh, hd), gen, 0.5)
+    ld = -F.softplus(torch.randn((b, s, nh), generator=gen, device="cuda"))
+    if decay is not None:
+        ld = torch.full_like(ld, decay)
+    Bm = _randn((b, s, st), gen, 0.3)
+    Cm = _randn((b, s, st), gen, 0.3)
+    h0 = _randn((b, nh, hd, st), gen, 0.1, torch.float32) if with_h0 \
+        else None
+    return xv, ld, Bm, Cm, h0
+
+
 def check_kernels() -> tuple:
-    """Each kernel, through the wrapper the main path calls, against its
+    """Each kernel, through the wrapper the main paths call, against its
     plain version.  Returns ({kernel: max abs error}, {kernel: largest
     row ratio}) over all cases."""
     from repro_torch.kernels import decode_attention as fd
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as ss
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    errs = {"flash_attention": 0.0, "flash_decode": 0.0}
+    errs = {k: 0.0 for k in KERNELS}
     ratios = dict(errs)
 
-    def note(name, out, want):
+    def note(name, out, want, **kw):
         torch.cuda.synchronize()
-        e, r = _err(out, want)
+        e, r = _err(out, want, **kw)
         errs[name] = max(errs[name], e)
         ratios[name] = max(ratios[name], r)
 
-    # (B, S, Sk, H, Hkv, window, q_offset, q scale): the main path, the
-    # main path with a peaked softmax, a window, a top-left q_offset, and
-    # a ragged tail.  ops.flash_attention has no q_offset (the main path
-    # never shifts q), so that case calls the launcher itself.
-    for b, s, sk, h, hkv, window, q_off, q_scale in [
-            (B, S, S, H, HKV, 0, 0, 1.0), (B, S, S, H, HKV, 0, 0, 4.0),
-            (B, S, S, H, HKV, 128, 0, 1.0), (2, 256, 512, H, HKV, 0, 256, 1.0),
-            (1, 300, 300, 8, 2, 0, 0, 1.0), (1, 300, 300, 8, 2, 64, 0, 1.0)]:
-        q = _randn((b, s, h, D), gen, q_scale)
-        k = _randn((b, sk, hkv, D), gen)
-        v = _randn((b, sk, hkv, D), gen)
+    # (B, S, Sk, H, Hkv, D, window, q_offset, q scale): qwen2's main path,
+    # the same with a peaked softmax, a window, a top-left q_offset, ragged
+    # tails; hymba's main path with its window and without.
+    # ops.flash_attention has no q_offset (the main paths never shift q),
+    # so that case calls the launcher itself.
+    for b, s, sk, h, hkv, d, window, q_off, q_scale in [
+            (B, 512, 512, 12, 2, 128, 0, 0, 1.0),
+            (B, 512, 512, 12, 2, 128, 0, 0, 4.0),
+            (B, 512, 512, 12, 2, 128, 128, 0, 1.0),
+            (2, 256, 512, 12, 2, 128, 0, 256, 1.0),
+            (1, 300, 300, 8, 2, 128, 0, 0, 1.0),
+            (1, 300, 300, 8, 2, 128, 64, 0, 1.0),
+            (B, 1536, 1536, 25, 5, 64, 1024, 0, 1.0),
+            (B, 1536, 1536, 25, 5, 64, 0, 0, 1.0),
+            (1, 300, 300, 10, 2, 64, 64, 0, 4.0)]:
+        q = _randn((b, s, h, d), gen, q_scale)
+        k = _randn((b, sk, hkv, d), gen)
+        v = _randn((b, sk, hkv, d), gen)
         kw = dict(causal=True, window=window)
         out = (ops.flash_attention(q, k, v, **kw) if q_off == 0 else
                fa.flash_attention_cuda(q, k, v, q_offset=q_off, **kw))
         note("flash_attention", out,
              fa.flash_attention_plain(q, k, v, q_offset=q_off, **kw))
     # decode: the JAX test's flat softmax (all inputs x0.5) and a peaked
-    # one (scores of std 4), where a wrong split merge is large
-    for smax in (SMAX, 4096):
+    # one (scores of std 4), where a wrong split merge is large; qwen2's
+    # cache and a long one at D=128 G=6, hymba's full ring at D=64 G=5
+    for h, hkv, d, smax in ((12, 2, 128, 544), (12, 2, 128, 4096),
+                            (25, 5, 64, 1024)):
         for q_scale, kv_scale in ((0.5, 0.5), (4.0, 1.0)):
-            q = _randn((B, H, D), gen, q_scale)
-            kc = _randn((B, smax, HKV, D), gen, kv_scale)
-            vc = _randn((B, smax, HKV, D), gen, kv_scale)
+            q = _randn((B, h, d), gen, q_scale)
+            kc = _randn((B, smax, hkv, d), gen, kv_scale)
+            vc = _randn((B, smax, hkv, d), gen, kv_scale)
             for length in (1, smax // 3, smax):
                 note("flash_decode", ops.flash_decode(q, kc, vc, length),
                      fd.flash_decode_plain(q, kc, vc, length))
     # stale cache: what lies at or beyond `length` must not leak in
-    q = _randn((1, 2, D), gen)
-    kc = _randn((1, 256, 2, D), gen)
-    vc = _randn((1, 256, 2, D), gen)
-    kp, vp = kc.clone(), vc.clone()
-    kp[:, 100:] = 1e9
-    vp[:, 100:] = -1e9
-    note("flash_decode", ops.flash_decode(q, kp, vp, 100),
-         fd.flash_decode_plain(q, kc, vc, 100))
+    for d in (128, 64):
+        q = _randn((1, 2, d), gen)
+        kc = _randn((1, 256, 2, d), gen)
+        vc = _randn((1, 256, 2, d), gen)
+        kp, vp = kc.clone(), vc.clone()
+        kp[:, 100:] = 1e9
+        vp[:, 100:] = -1e9
+        note("flash_decode", ops.flash_decode(q, kp, vp, 100),
+             fd.flash_decode_plain(q, kc, vc, 100))
+    # SSD scan (B, S, nh, hd, st, chunk, with h0, decay): hymba's main path
+    # with and without h0, the JAX sweep (tests/test_kernels.py:93-97), a
+    # ragged S, and a strong decay whose unmasked exp would overflow
+    for b, s, nh, hd, st, chunk, with_h0, decay in [
+            (B, 1536, 25, 64, 16, 64, False, None),
+            (B, 1536, 25, 64, 16, 64, True, None),
+            (1, 128, 2, 16, 16, 64, True, None),
+            (2, 256, 4, 32, 16, 128, True, None),
+            (1, 256, 1, 64, 32, 256, True, None),
+            (2, 200, 3, 64, 16, 64, True, None),
+            (2, 256, 4, 64, 16, 64, True, -20.0)]:
+        xv, ld, Bm, Cm, h0 = _ssm_inputs(gen, b, s, nh, hd, st, decay,
+                                         with_h0)
+        y, hf = ops.ssm_scan(xv, ld, Bm, Cm, h0, chunk)
+        yp, hp = ss.ssm_scan_plain(xv, ld, Bm, Cm, h0, chunk=chunk)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(y).all() and torch.isfinite(hf).all()):
+            raise AssertionError(f"ssm_scan: non-finite output at "
+                                 f"{(b, s, nh, hd, st, chunk, decay)}")
+        note("ssm_scan", y, yp)
+        _err(hf, hp, STATE_TOL, rows=False)
     return errs, ratios
 
 
@@ -184,50 +245,91 @@ def _bound(flops: float, nbytes: float) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def time_kernels() -> dict:
-    """Kernel (through the main path's wrapper), plain version, library
-    yardstick and bound at main-path shapes."""
+def _pairs(s: int, window: int) -> int:
+    """Allowed (q, k) pairs of causal attention over s positions, each row
+    seeing at most ``window`` keys (0: no window)."""
+    w = window or s
+    return sum(min(i + 1, w) for i in range(s))
+
+
+def time_kernels(cfg, prompt: int) -> dict:
+    """Each kernel of the path (through the main path's wrapper), its plain
+    version, a library yardstick and the bound, at the path's shapes:
+    prefill attention over the prompt, a decode step against the cache a
+    mid-generation step sees, and the SSD scan of a prefill."""
+    from repro_torch.configs.base import HYBRID, SWA
     from repro_torch.kernels import decode_attention as fd
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as ss
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    windowed = any(k in (SWA, HYBRID) for k in cfg.blocks)
+    window = cfg.window if windowed else 0
     res = {}
-    q = _randn((B, S, H, D), gen)
-    k = _randn((B, S, HKV, D), gen)
-    v = _randn((B, S, HKV, D), gen)
+    q = _randn((B, prompt, h, d), gen)
+    k = _randn((B, prompt, hkv, d), gen)
+    v = _randn((B, prompt, hkv, d), gen)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    pairs = S * (S + 1) // 2            # causal (q, k) pairs per head
-    flops = 4.0 * B * H * pairs * D     # QK^T and PV
+    flops = 4.0 * B * h * _pairs(prompt, window) * d   # QK^T and PV
     nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
-    bound_ms, bound_by = _bound(flops, nbytes)
-    fns = dict(ms=lambda: ops.flash_attention(q, k, v),
-               plain_ms=lambda: fa.flash_attention_plain(q, k, v),
-               library_ms=lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, is_causal=True, enable_gqa=True))
-    res["flash_attention"] = _timed(fns, bound_ms, bound_by)
-    length = S + GEN_LEN // 2           # a mid-generation decode step
-    qd = _randn((B, H, D), gen, 0.5)
-    kc = _randn((B, SMAX, HKV, D), gen, 0.5)
-    vc = _randn((B, SMAX, HKV, D), gen, 0.5)
+    if window:
+        i = torch.arange(prompt, device="cuda")
+        band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        library = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            qt, kt, vt, attn_mask=band, enable_gqa=True)
+    else:
+        library = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    fns = dict(ms=lambda: ops.flash_attention(q, k, v, window=window),
+               plain_ms=lambda: fa.flash_attention_plain(q, k, v,
+                                                         window=window),
+               library_ms=library)
+    res["flash_attention"] = _timed(fns, *_bound(flops, nbytes))
+    # decode: a mid-generation step; a window layer's ring is full
+    smax = prompt + GEN_LEN
+    length = prompt + GEN_LEN // 2
+    if window:
+        smax = length = min(window, prompt)
+    qd = _randn((B, h, d), gen, 0.5)
+    kc = _randn((B, smax, hkv, d), gen, 0.5)
+    vc = _randn((B, smax, hkv, d), gen, 0.5)
     kl = kc[:, :length].transpose(1, 2)
     vl = vc[:, :length].transpose(1, 2)
-    flops = 4.0 * B * H * length * D
-    nbytes = 2.0 * (2 * qd.numel() + 2 * B * length * HKV * D)
-    bound_ms, bound_by = _bound(flops, nbytes)
+    flops = 4.0 * B * h * length * d
+    nbytes = 2.0 * (2 * qd.numel() + 2 * B * length * hkv * d)
     fns = dict(ms=lambda: ops.flash_decode(qd, kc, vc, length),
                plain_ms=lambda: fd.flash_decode_plain(qd, kc, vc, length),
                library_ms=lambda: F.scaled_dot_product_attention(
                    qd[:, :, None], kl, vl, enable_gqa=True))
-    res["flash_decode"] = _timed(fns, bound_ms, bound_by)
+    res["flash_decode"] = _timed(fns, *_bound(flops, nbytes))
+    if HYBRID in cfg.blocks:
+        st, chunk = cfg.ssm_state, min(64, prompt)   # serve's ssm_chunk
+        xv, ld, Bm, Cm, _ = _ssm_inputs(gen, B, prompt, h, d, st)
+        # per (batch, chunk): C B^T over the causal pairs, shared by the
+        # heads; per head: g X, the inter-chunk term and the state update
+        n_chunks = -(-prompt // chunk)
+        tri = chunk * (chunk + 1) / 2
+        flops = 2.0 * B * n_chunks * (tri * st + h * (tri * d + 2 * chunk
+                                                       * st * d))
+        nbytes = (2 * xv.numel() * 2 + ld.numel() * 4 + 2 * Bm.numel() * 2
+                  + B * h * d * st * 4)            # xv, y, ld, B, C, h
+        # no single PyTorch call computes a selective scan: no yardstick
+        fns = dict(ms=lambda: ops.ssm_scan(xv, ld, Bm, Cm, None, chunk),
+                   plain_ms=lambda: ss.ssm_scan_plain(xv, ld, Bm, Cm,
+                                                      chunk=chunk))
+        res["ssm_scan"] = _timed(fns, *_bound(flops, nbytes))
     return res
 
 
 def _timed(fns: dict, bound_ms: float, bound_by: str) -> tuple:
-    """({ms, plain_ms, library_ms: device ms, bound_ms, bound_by},
-    {same keys: back-to-back call ms})."""
+    """({ms, plain_ms, library_ms: device ms (library_ms None where no
+    library call computes the function), bound_ms, bound_by}, {same keys:
+    back-to-back call ms})."""
     dev = {k: device_ms(f) for k, f in fns.items()}
     calls = {k: call_ms(f) for k, f in fns.items()}
+    dev.setdefault("library_ms", None)
     return dict(dev, bound_ms=bound_ms, bound_by=bound_by), calls
 
 
@@ -247,25 +349,36 @@ def _profile_latencies(path: str) -> dict:
     return out
 
 
-def run_serve(cfg, params) -> dict:
+def _serve_opts(prompt: int):
+    """The options ``serve`` builds by default for this prompt."""
+    from repro_torch.models import transformer as T
+    return T.ModelOptions(q_chunk=min(256, prompt), kv_chunk=min(256, prompt),
+                          ssm_chunk=min(64, prompt))
+
+
+def run_serve(cfg, params, prompt: int) -> dict:
+    from repro_torch.configs.base import HYBRID
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
     prof_dir = os.path.join(ROOT, "chiprun_out", "chip_smoke_profile")
+    prof_dir = os.path.join(prof_dir, cfg.name)
     shutil.rmtree(prof_dir, ignore_errors=True)
-    ops.flash_attention.launches = 0
-    ops.flash_decode.launches = 0
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
     t0 = time.monotonic()
-    toks, paths = serve(cfg, n_requests=N_REQUESTS, batch=B, prompt_len=S,
-                        gen_len=GEN_LEN, profile_dir=prof_dir,
-                        device="cuda", params=params)
+    toks, paths = serve(cfg, n_requests=N_REQUESTS, batch=B,
+                        prompt_len=prompt, gen_len=GEN_LEN,
+                        profile_dir=prof_dir, device="cuda", params=params)
     wall = time.monotonic() - t0
-    launches = {"flash_attention": ops.flash_attention.launches,
-                "flash_decode": ops.flash_decode.launches}
+    launches = {name: getattr(ops, name).launches for name in KERNELS}
     n_batches = -(-N_REQUESTS // B)
+    n_hybrid = sum(k == HYBRID for k in cfg.blocks)
     want = {"flash_attention": cfg.n_layers * (n_batches + 1),
-            "flash_decode": cfg.n_layers * ((GEN_LEN - 1) * n_batches + 1)}
+            "flash_decode": cfg.n_layers * ((GEN_LEN - 1) * n_batches + 1),
+            "ssm_scan": n_hybrid * (n_batches + 1)}
     if launches != want:
-        raise AssertionError(f"launch counts {launches}, expected {want}")
+        raise AssertionError(f"{cfg.name}: launch counts {launches}, "
+                             f"expected {want}")
     if tuple(toks.shape) != (N_REQUESTS, GEN_LEN):
         raise AssertionError(f"tokens shape {tuple(toks.shape)}")
     if not paths or not all(os.path.getsize(p) > 0 for p in paths.values()):
@@ -277,35 +390,35 @@ def run_serve(cfg, params) -> dict:
                 tok_per_s_in_steps=N_REQUESTS * GEN_LEN / step_s)
 
 
-def check_replay(cfg, params, toks) -> None:
+def check_replay(cfg, params, toks, prompt: int) -> None:
     """Every request batch again, outside serve, from the same prompts:
     every logit finite, the same tokens."""
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import steps
-    from repro_torch.models import transformer as T
-    opts = T.ModelOptions(q_chunk=256, kv_chunk=256)
+    opts = _serve_opts(prompt)
     prefill = steps.make_prefill_step(cfg, opts)
     decode = steps.make_decode_step(cfg, opts)
     rng = np.random.default_rng(0)         # serve's prompt generator
     for bi in range(-(-N_REQUESTS // B)):
-        prompts = rng.integers(0, cfg.vocab, (B, S), np.int32)
+        prompts = rng.integers(0, cfg.vocab, (B, prompt), np.int32)
         logits, cache = prefill(
             params, {"tokens": torch.from_numpy(prompts).cuda().long()})
-        cache = serve_mod._grow_cache(cache, SMAX, S)
+        cache = serve_mod._grow_cache(cache, prompt + GEN_LEN, prompt)
         got = [logits.argmax(-1)]
         finite = [torch.isfinite(logits).all()]
         for t in range(GEN_LEN - 1):
-            logits, cache = decode(params, cache, S + t, token=got[-1])
+            logits, cache = decode(params, cache, prompt + t, token=got[-1])
             finite.append(torch.isfinite(logits).all())
             got.append(logits.argmax(-1))
         if not bool(torch.stack(finite).all()):
-            raise AssertionError(f"batch {bi}: non-finite logits")
+            raise AssertionError(f"{cfg.name} batch {bi}: non-finite logits")
         want = toks[bi * B:(bi + 1) * B]
         if not torch.equal(torch.stack(got, 1)[:len(want)], want):
-            raise AssertionError(f"batch {bi}: replay differs from serve")
+            raise AssertionError(f"{cfg.name} batch {bi}: replay differs "
+                                 f"from serve")
 
 
-def step_breakdown(cfg, params, n_decode: int = 8) -> dict:
+def step_breakdown(cfg, params, prompt: int, n_decode: int = 8) -> dict:
     """Where a serving step's time goes, under torch.profiler: host wall
     time per step against the device's busy time (sum of CUDA kernel
     time), the idle share, the number of device kernels per step, and the
@@ -313,15 +426,15 @@ def step_breakdown(cfg, params, n_decode: int = 8) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import steps
-    from repro_torch.models import transformer as T
-    opts = T.ModelOptions(q_chunk=256, kv_chunk=256)
+    opts = _serve_opts(prompt)
     prefill = steps.make_prefill_step(cfg, opts)
     decode = steps.make_decode_step(cfg, opts)
-    batch = {"tokens": torch.zeros((B, S), dtype=torch.long, device="cuda")}
+    batch = {"tokens": torch.zeros((B, prompt), dtype=torch.long,
+                                   device="cuda")}
     out = {}
     for phase in ("prefill", "decode"):
         logits, cache = prefill(params, batch)
-        cache = serve_mod._grow_cache(cache, SMAX, S)
+        cache = serve_mod._grow_cache(cache, prompt + GEN_LEN, prompt)
         tok = logits.argmax(-1)
         n = 1 if phase == "prefill" else n_decode
         torch.cuda.synchronize()
@@ -331,12 +444,12 @@ def step_breakdown(cfg, params, n_decode: int = 8) -> dict:
                 if phase == "prefill":
                     prefill(params, batch)
                 else:
-                    decode(params, cache, S + t, token=tok)
+                    decode(params, cache, prompt + t, token=tok)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / n
         ka = [e for e in prof.key_averages() if e.self_device_time_total > 0]
         busy_ms = sum(e.self_device_time_total for e in ka) / 1e3 / n
-        top = sorted(ka, key=lambda e: -e.self_device_time_total)[:4]
+        top = sorted(ka, key=lambda e: -e.self_device_time_total)[:5]
         out[phase] = dict(
             wall_ms=wall_ms, device_busy_ms=busy_ms,
             idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
@@ -346,23 +459,24 @@ def step_breakdown(cfg, params, n_decode: int = 8) -> dict:
     return out
 
 
-def check_against_cpu(cfg) -> float:
-    """A 2-layer model at full width: kernels on the card against the same
-    bf16 weights on the CPU through the plain versions, prefill plus 4
-    teacher-forced decode steps.  Both sides round to bf16 at the same
-    points and differ by accumulation order (and the decode kernel's fp32
-    p) only, a few bf16 ulps at the logits' scale; so the max abs logit
-    error is held to 2e-2 of the largest reference logit, per step.
+def check_against_cpu(cfg, prompt: int, window: int) -> float:
+    """A 2-layer model at full width (window layers at ``window``): kernels
+    on the card against the same bf16 weights on the CPU through the plain
+    versions, prefill plus 4 teacher-forced decode steps.  Both sides round
+    to bf16 at the same points and differ by accumulation order (and the
+    decode kernel's fp32 p) only, a few bf16 ulps at the logits' scale; so
+    the max abs logit error is held to 2e-2 of the largest reference
+    logit, per step.
 
     The seeded init takes wq/wk's fan-in from the head axis, as the JAX
-    package does, which at this width gives raw attention scores of std
-    about 128: a one-hot softmax whose winner flips under any rounding.
-    wq and wk are scaled by 1/8 here so that scores are of unit scale and
-    the comparison measures the kernels, not near-ties.  Returns the
-    largest error ratio."""
+    package does, which at these widths gives raw attention scores of std
+    about 128 (qwen2; hymba's are of the same order): a one-hot softmax
+    whose winner flips under any rounding.  wq and wk are scaled by 1/8
+    here so that scores are of unit scale and the comparison measures the
+    kernels, not near-ties.  Returns the largest error ratio."""
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import transformer as T
-    small = dataclasses.replace(cfg, n_layers=2)
+    small = dataclasses.replace(cfg, n_layers=2, window=window)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     p_gpu = T.init_params(gen, small)
@@ -370,30 +484,31 @@ def check_against_cpu(cfg) -> float:
         attn["wq"].mul_(0.125)
         attn["wk"].mul_(0.125)
     p_cpu = _tree(p_gpu, lambda x: x.cpu())
-    opts = T.ModelOptions(q_chunk=64, kv_chunk=64)
+    opts = T.ModelOptions(q_chunk=64, kv_chunk=64, ssm_chunk=64)
     toks = torch.from_numpy(np.random.default_rng(3).integers(
-        0, cfg.vocab, (2, 64), np.int64))
+        0, cfg.vocab, (2, prompt), np.int64))
     worst = 0.0
     with torch.no_grad():
         lg, cg = T.prefill(p_gpu, small, toks.cuda(), opts=opts)
         lc, cc = T.prefill(p_cpu, small, toks, opts=opts)
-        cg = serve_mod._grow_cache(cg, 72, 64)
-        cc = serve_mod._grow_cache(cc, 72, 64)
+        cg = serve_mod._grow_cache(cg, prompt + 8, prompt)
+        cc = serve_mod._grow_cache(cc, prompt + 8, prompt)
         for t in range(5):
             if not torch.isfinite(lg).all():
                 raise AssertionError(f"step {t}: non-finite logits")
             rel = float((lg.cpu() - lc).abs().max() / lc.abs().max())
             if rel > 2e-2:
-                raise AssertionError(f"step {t}: max abs logit error is "
-                                     f"{rel:.4f} of the largest logit")
+                raise AssertionError(f"{cfg.name} step {t}: max abs logit "
+                                     f"error is {rel:.4f} of the largest "
+                                     f"logit")
             worst = max(worst, rel)
             if t == 4:
                 break
             nxt = lg.argmax(-1)
-            lg, cg = T.decode_step(p_gpu, small, cg, token=nxt, pos=64 + t,
-                                   opts=opts)
+            lg, cg = T.decode_step(p_gpu, small, cg, token=nxt,
+                                   pos=prompt + t, opts=opts)
             lc, cc = T.decode_step(p_cpu, small, cc, token=nxt.cpu(),
-                                   pos=64 + t, opts=opts)
+                                   pos=prompt + t, opts=opts)
     return worst
 
 
@@ -403,51 +518,68 @@ def _tree(tree, fn):
     return fn(tree)
 
 
+def run_path(name: str) -> dict:
+    """Serve one model, check its output, then time its kernels and break
+    its steps down (everything under torch.profiler comes after serve,
+    whose latencies it would otherwise inflate).  Returns the serve
+    result and the kernel times."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(name)
+    prompt = PATHS[name]["prompt"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = T.init_params(gen, cfg)
+    srv = run_serve(cfg, params, prompt)
+    print(f"serve {name}: {N_REQUESTS} requests x {GEN_LEN} tokens, "
+          f"batch {B}, prompt {prompt}: wall {srv['wall_s']:.2f} s (incl. "
+          f"warm-up), prefill {srv['prefill_ms']:.3f} ms/batch, decode "
+          f"{srv['decode_ms']:.3f} ms/step, "
+          f"{srv['tok_per_s_in_steps']:.1f} tok/s over measured steps; "
+          f"launches {json.dumps(srv['launches'])}", flush=True)
+    check_replay(cfg, params, srv["tokens"], prompt)
+    print(f"replay {name}: every batch reproduces serve's tokens",
+          flush=True)
+    times = time_kernels(cfg, prompt)
+    for kname, (t, calls) in times.items():
+        print(f"{name} {kname}: device {json.dumps(t)}; back-to-back call "
+              f"{json.dumps(calls)}", flush=True)
+    if "ssm_scan" in times:
+        print("ssm_scan library_ms: null, no single PyTorch call computes "
+              "a selective (SSD) scan", flush=True)
+    print(f"{name} step breakdown: "
+          f"{json.dumps(step_breakdown(cfg, params, prompt))}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    cpu = PATHS[name]
+    worst = check_against_cpu(cfg, cpu["cpu_prompt"], cpu["cpu_window"])
+    print(f"{name}: 2-layer full-width (prompt {cpu['cpu_prompt']}, window "
+          f"{cpu['cpu_window']}) vs CPU bf16 plain: max abs logit err / max "
+          f"abs logit {worst:.4f}", flush=True)
+    return dict(launches=srv["launches"], times=times)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.configs import get_config
-    from repro_torch.models import transformer as T
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"build_s: {build_kernels():.1f}", flush=True)
     errs, ratios = check_kernels()
     print(f"kernel checks passed: max abs err {errs}, largest row "
           f"err / row max {ratios}", flush=True)
+    runs = {name: run_path(name) for name in PATHS}
 
-    cfg = get_config("qwen2-1.5b")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    params = T.init_params(gen, cfg)
-    srv = run_serve(cfg, params)
-    print(f"serve qwen2-1.5b: {N_REQUESTS} requests x {GEN_LEN} tokens, "
-          f"batch {B}, prompt {S}: wall {srv['wall_s']:.2f} s (incl. warm-up),"
-          f" prefill {srv['prefill_ms']:.3f} ms/batch, decode "
-          f"{srv['decode_ms']:.3f} ms/step, "
-          f"{srv['tok_per_s_in_steps']:.1f} tok/s over measured steps",
-          flush=True)
-    check_replay(cfg, params, srv["tokens"])
-    # everything under torch.profiler comes after serve, whose latencies
-    # it would otherwise inflate
-    times = time_kernels()
-    for name, (t, calls) in times.items():
-        print(f"{name}: device {json.dumps(t)}; back-to-back call "
-              f"{json.dumps(calls)}", flush=True)
-    print(f"step breakdown: {json.dumps(step_breakdown(cfg, params))}",
-          flush=True)
-    print(f"2-layer full-width vs CPU bf16 plain: max abs logit err / "
-          f"max abs logit "
-          f"{check_against_cpu(cfg):.4f}", flush=True)
-
-    src = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                               "src/repro/kernels/flash_attention.py:36"),
-           "flash_decode": ("src/repro_torch/csrc/decode_attention.cu",
-                            "src/repro/kernels/decode_attention.py:30")}
-    kernels = [dict(name=n, route="cuda", source=src[n][0],
-                    replaces=src[n][1], launches=srv["launches"][n],
-                    max_abs_err=errs[n], **times[n][0]) for n in src]
+    kernels = []
+    for path, run in runs.items():
+        for kname, (t, _) in run["times"].items():
+            kernels.append(dict(
+                name=kname, path=path, route="cuda",
+                source=SOURCES[kname][0], replaces=SOURCES[kname][1],
+                launches=run["launches"][kname], max_abs_err=errs[kname],
+                **t))
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

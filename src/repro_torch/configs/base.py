@@ -3,8 +3,9 @@ so that the port imports nothing of ``repro``.
 
 Every architecture the port serves is a ``ModelConfig`` registered under
 its public id (e.g. ``"qwen2-1.5b"``).  Configs are plain frozen
-dataclasses, hashable and trivially serializable.  Only the dense GQA
-slice (qwen2-1.5b) is registered so far.
+dataclasses, hashable and trivially serializable.  Registered so far: the
+dense GQA slice (qwen2-1.5b) and the hybrid attention + mamba slice
+(hymba-1.5b).
 """
 from __future__ import annotations
 
@@ -180,4 +181,4 @@ def list_configs() -> Tuple[str, ...]:
 
 def _load_all() -> None:
     # import side effect registers each config
-    from repro_torch.configs import qwen2_1_5b  # noqa: F401
+    from repro_torch.configs import hymba_1_5b, qwen2_1_5b  # noqa: F401

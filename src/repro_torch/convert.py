@@ -10,21 +10,25 @@ import numpy as np
 import torch
 
 
-def _leaf(a, device, dtype) -> torch.Tensor:
+def _leaf(a, device) -> torch.Tensor:
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        # torch.from_numpy rejects ml_dtypes.bfloat16: go through float32
+    bf16 = a.dtype.name == "bfloat16"
+    if bf16:
+        # torch.from_numpy rejects ml_dtypes.bfloat16: go through float32,
+        # which holds every bf16 value exactly
         a = a.astype(np.float32)
     # .copy(): JAX buffers are read-only, torch wants a writable array
     t = torch.from_numpy(np.array(a, copy=True))
-    if t.is_floating_point():
-        t = t.to(dtype)
+    if bf16:
+        t = t.to(torch.bfloat16)
     return t.to(device)
 
 
-def params_from_jax(tree, device="cuda", dtype=torch.float32):
-    """numpy tree of the JAX package's params -> the port's params, every
-    floating leaf cast to ``dtype`` on ``device``."""
+def params_from_jax(tree, device="cuda"):
+    """numpy tree of the JAX package's params -> the port's params on
+    ``device``, each leaf in the dtype of the JAX leaf it comes from (a
+    bf16 model keeps its float32 leaves, such as the mamba mixer's
+    ``dt_bias``, ``A_log`` and ``D`` and the hybrid mix ``beta``)."""
     if isinstance(tree, dict):
-        return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
-    return _leaf(tree, device, dtype)
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    return _leaf(tree, device)

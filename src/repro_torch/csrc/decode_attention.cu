@@ -120,7 +120,8 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(
     }
     __syncthreads();
 
-    // acc = acc * alpha + P V: thread -> one dim
+    // acc = acc * alpha + P V: thread -> one dim (at D = 64 the upper
+    // half of the block idles here; correct, not yet fast)
     if (tid < D) {
 #pragma unroll
       for (int gg = 0; gg < kMaxG; ++gg) {
@@ -191,7 +192,8 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, void* out,
 }  // namespace
 }  // namespace repro_torch
 
-// q (B,H,D), caches (B,Smax,Hkv,D), out (B,H,D): bf16, contiguous, D = 128.
+// q (B,H,D), caches (B,Smax,Hkv,D), out (B,H,D): bf16, contiguous,
+// D = 64 or 128.
 // part_m/part_l (B,H,n_splits) and part_acc (B,H,n_splits,D): fp32
 // scratch.  Split s covers keys [s*keys_per_split, (s+1)*keys_per_split)
 // clipped to `length`; keys_per_split is a multiple of 64.
@@ -206,8 +208,14 @@ extern "C" int flash_decode_fwd_bf16(const void* q, const void* kc,
   float* pm = static_cast<float*>(part_m);
   float* pl = static_cast<float*>(part_l);
   float* pa = static_cast<float*>(part_acc);
-  if (D != 128 || H % Hkv != 0 || H / Hkv > repro_torch::kMaxG)
+  if (H % Hkv != 0 || H / Hkv > repro_torch::kMaxG)
     return (int)cudaErrorInvalidValue;
-  return repro_torch::launch<128>(q, kc, vc, out, pm, pl, pa, B, H, Hkv, Smax,
-                                  length, n_splits, keys_per_split, st);
+  if (D == 64)
+    return repro_torch::launch<64>(q, kc, vc, out, pm, pl, pa, B, H, Hkv,
+                                   Smax, length, n_splits, keys_per_split, st);
+  if (D == 128)
+    return repro_torch::launch<128>(q, kc, vc, out, pm, pl, pa, B, H, Hkv,
+                                    Smax, length, n_splits, keys_per_split,
+                                    st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -220,15 +220,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 }  // namespace repro_torch
 
-// q (B,S,H,D), k/v (B,Sk,Hkv,D), o (B,S,H,D); all bf16, contiguous, D = 128.
-// Returns the launch's cudaError_t (0 on success).
+// q (B,S,H,D), k/v (B,Sk,Hkv,D), o (B,S,H,D); all bf16, contiguous,
+// D = 64 or 128.  Returns the launch's cudaError_t (0 on success).
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
                                         const void* v, void* o, int B, int S,
                                         int Sk, int H, int Hkv, int D,
                                         int causal, int window, int q_offset,
                                         void* stream) {
-  if (D != 128) return (int)cudaErrorInvalidValue;
-  return repro_torch::launch<128>(q, k, v, o, B, S, Sk, H, Hkv, causal,
-                                  window, q_offset,
-                                  static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return repro_torch::launch<64>(q, k, v, o, B, S, Sk, H, Hkv, causal,
+                                   window, q_offset, st);
+  if (D == 128)
+    return repro_torch::launch<128>(q, k, v, o, B, S, Sk, H, Hkv, causal,
+                                    window, q_offset, st);
+  return (int)cudaErrorInvalidValue;
 }

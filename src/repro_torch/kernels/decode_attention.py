@@ -35,7 +35,8 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIM = 128         # the head dim the kernel is built for
+HEAD_DIMS = (64, 128)  # the head dims the kernel is built for
+                       # (launch<64> and launch<128>)
 MAX_GROUP = 8          # q heads per kv head the kernel holds (kMaxG)
 TILE = 64              # keys per tile (kBK)
 
@@ -89,7 +90,7 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, length: int) -> torch.Tensor:
     """Launch the split and combine kernels on the current stream.  Takes
     a bf16 CUDA q (B,H,D) and contiguous bf16 CUDA caches (B,Smax,Hkv,D),
-    D = ``HEAD_DIM``, H/Hkv <= ``MAX_GROUP`` and 1 <= length <= Smax;
+    D in ``HEAD_DIMS``, H/Hkv <= ``MAX_GROUP`` and 1 <= length <= Smax;
     raises on anything else."""
     B, H, D = q.shape
     Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
@@ -99,7 +100,7 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                              f"CUDA tensor, got {t.dtype} on {t.device}")
     if k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
             or k_cache.shape[0] != B or k_cache.shape[3] != D \
-            or H % Hkv or H // Hkv > MAX_GROUP or D != HEAD_DIM:
+            or H % Hkv or H // Hkv > MAX_GROUP or D not in HEAD_DIMS:
         raise ValueError(f"flash_decode kernel: bad shapes q {tuple(q.shape)}"
                          f" cache {tuple(k_cache.shape)}")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):

@@ -28,7 +28,8 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIM = 128         # the head dim the kernel is built for
+HEAD_DIMS = (64, 128)  # the head dims the kernel is built for
+                       # (launch<64> and launch<128>)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -70,7 +71,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          q_offset: int = 0) -> torch.Tensor:
     """Launch the Hopper kernel on the current stream.  Takes bf16 CUDA
-    tensors q (B,S,H,D) and k/v (B,Sk,Hkv,D) with D = ``HEAD_DIM``;
+    tensors q (B,S,H,D) and k/v (B,Sk,Hkv,D) with D in ``HEAD_DIMS``;
     raises on anything else."""
     B, S, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -79,7 +80,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention kernel: {name} must be a 4-d "
                              f"bf16 CUDA tensor, got {t.dtype} on {t.device}")
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D \
-            or H % Hkv or D != HEAD_DIM:
+            or H % Hkv or D not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: bad shapes q {tuple(q.shape)}"
                          f" k {tuple(k.shape)} v {tuple(v.shape)}")
     if q_offset < 0 or window < 0:

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _fd
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ssm_scan as _ss
 
 
 def _no_grad_on_cuda(what: str, *tensors: torch.Tensor) -> None:
@@ -54,5 +55,21 @@ def flash_decode(q, k_cache, v_cache, length: int, block_kv: int = 512):
     return _fd.flash_decode_plain(q, k_cache, v_cache, int(length))
 
 
+def ssm_scan(xv, logdecay, Bmat, Cmat, h0=None, chunk: int = 256):
+    """Chunkwise SSD scan.  xv (B,S,nh,hd), logdecay (B,S,nh), Bmat/Cmat
+    (B,S,st), h0 (B,nh,hd,st) or None.  Returns (y (B,S,nh,hd) in
+    xv.dtype, h_final (B,nh,hd,st) fp32).  ``chunk`` is capped at S, as
+    in the JAX wrapper."""
+    c = min(int(chunk), xv.shape[1])
+    if xv.is_cuda:
+        _no_grad_on_cuda("ssm_scan", *(t for t in (xv, logdecay, Bmat, Cmat,
+                                                   h0) if t is not None))
+        out = _ss.ssm_scan_cuda(xv, logdecay, Bmat, Cmat, h0, chunk=c)
+        ssm_scan.launches += 1
+        return out
+    return _ss.ssm_scan_plain(xv, logdecay, Bmat, Cmat, h0, chunk=c)
+
+
 flash_attention.launches = 0
 flash_decode.launches = 0
+ssm_scan.launches = 0

@@ -1,9 +1,12 @@
-"""Plain-torch oracle for the attention kernels.
+"""Plain-torch oracles for the kernels.
 
-Deliberately naive (full materialized softmax): the ground truth the
-kernels' plain versions and the model paths are held against.
+Deliberately naive (full materialized softmax; per-timestep sequential
+SSM scan): the ground truth the kernels' plain versions and the model
+paths are held against.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -34,3 +37,34 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def ssm_scan_ref(xv: torch.Tensor, logdecay: torch.Tensor,
+                 Bmat: torch.Tensor, Cmat: torch.Tensor,
+                 h0: Optional[torch.Tensor] = None) -> tuple:
+    """Sequential (per-timestep) selective-SSM scan, SSD convention.
+
+    xv:       (B, S, nh, hd)   values (dt folded in)
+    logdecay: (B, S, nh)       log decay per step (<= 0)
+    Bmat:     (B, S, st)       input projection (shared across heads)
+    Cmat:     (B, S, st)       output projection
+    h0:       (B, nh, hd, st)  initial state or None
+
+    h[t] = exp(logdecay[t]) * h[t-1] + outer(xv[t], B[t])
+    y[t] = h[t] @ C[t]
+    Returns (y (B,S,nh,hd) in xv.dtype, h_final (B,nh,hd,st) fp32).
+    """
+    B, S, nh, hd = xv.shape
+    st = Bmat.shape[-1]
+    if h0 is None:
+        h = torch.zeros((B, nh, hd, st), dtype=torch.float32,
+                        device=xv.device)
+    else:
+        h = h0.float()
+    ys = []
+    for t in range(S):
+        h = h * torch.exp(logdecay[:, t].float())[:, :, None, None]
+        h = h + torch.einsum("bhd,bs->bhds", xv[:, t].float(),
+                             Bmat[:, t].float())
+        ys.append(torch.einsum("bhds,bs->bhd", h, Cmat[:, t].float()))
+    return torch.stack(ys, dim=1).to(xv.dtype), h

@@ -52,7 +52,8 @@ def serve(cfg: ModelConfig, *, n_requests: int = 8, batch: int = 4,
                                   "pass serving=None")
     dev = resolve_device(device)
     opts = opts or T.ModelOptions(q_chunk=min(256, prompt_len),
-                                  kv_chunk=min(256, prompt_len))
+                                  kv_chunk=min(256, prompt_len),
+                                  ssm_chunk=min(64, prompt_len))
     if params is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -129,7 +130,12 @@ def serve(cfg: ModelConfig, *, n_requests: int = 8, batch: int = 4,
 
 
 def _grow_cache(cache, max_len: int, cur_len: int):
-    """Pad prefill KV caches out to max_len slots (attention layers only)."""
+    """Pad prefill KV caches out to max_len slots (attention layers only).
+    As in the JAX package's ``serve``, the rule is by name and shape: a ``k``/``v`` of
+    ``cur_len`` slots grows, so a window ring shorter than the prompt and
+    the ``ssm``/``conv`` states stay as they are, while a ring whose
+    window is at least the prompt grows to ``max_len`` (and decode then
+    attends to every position, as the reference does)."""
     def grow(name, leaf):
         if name in ("k", "v") and leaf.dim() == 5 and \
                 leaf.shape[2] == cur_len:

@@ -1,11 +1,13 @@
 """GQA attention: chunked (flash-style) prefill and single-token decode
-against a KV cache, forward only.
+against a KV cache, full or sliding-window (a ring of ``window`` slots),
+forward only.
 
 The serving path reaches the Hopper kernels through ``kernels.ops``:
-prefill attention in ``transformer._attention`` and decode attention in
-``attention_block``.  ``chunked_attention`` is the dense online-softmax
-schedule of the JAX package's ``_attn_core`` in plain torch; here it
-serves prefill against an existing cache (``q_offset > 0``).
+prefill attention in ``transformer._attention`` (causal, with the layer's
+window if it has one) and decode attention in ``attention_block``.
+``chunked_attention`` is the dense online-softmax schedule of the JAX
+package's ``_attn_core`` in plain torch; here it serves prefill against an
+existing full cache (``q_offset > 0``).
 """
 from __future__ import annotations
 
@@ -141,20 +143,35 @@ def attention_block(params, x, positions, cfg, *, layer_window: int = 0,
 
     kv_cache: (k_cache, v_cache) of shape (B, Smax, Hkv, D); cache_pos: the
     absolute position of x[0], a Python int.  Unlike the functional JAX
-    version, the new k/v are written into the given cache tensors in
-    place (no copy of the cache per step), and those tensors are
-    returned.  Decode (S == 1) runs ``ops.flash_decode`` with
-    ``length = cache_pos + 1``.
+    version, decode writes the new k/v into the given cache tensors in
+    place (no copy of the cache per step) and returns those tensors.
+    Decode (S == 1) runs ``ops.flash_decode`` with ``length = cache_pos +
+    1``.  With ``layer_window`` the cache is a ring of Smax slots: decode
+    writes slot ``cache_pos % Smax`` and attends ``length = min(cache_pos
+    + 1, Smax)`` slots (order does not matter to attention), and prefill
+    keeps the last Smax keys as new tensors, as the JAX version does.
     """
     if kv_cache is None:
         raise NotImplementedError("training attention comes with the "
                                   "training slice")
-    if layer_window:
-        raise NotImplementedError("sliding-window (ring) caches")
     S = x.shape[1]
     cache_pos = int(cache_pos)
     q, k, v = project_qkv(params, x, cfg, positions)
     k_cache, v_cache = kv_cache
+    smax = k_cache.shape[1]
+    if layer_window:
+        if S == 1:  # decode: one slot of the ring
+            slot = cache_pos % smax
+            k_cache[:, slot:slot + 1] = k.to(k_cache.dtype)
+            v_cache[:, slot:slot + 1] = v.to(v_cache.dtype)
+            out = ops.flash_decode(q[:, 0], k_cache, v_cache,
+                                   min(cache_pos + 1, smax))[:, None]
+        else:       # prefill: the ring holds the last smax keys
+            k_cache = k[:, -smax:].to(k_cache.dtype)
+            v_cache = v[:, -smax:].to(v_cache.dtype)
+            out = ops.flash_attention(q, k, v, causal=True,
+                                      window=layer_window)
+        return o_proj(out, params["wo"]), (k_cache, v_cache)
     k_cache[:, cache_pos:cache_pos + S] = k.to(k_cache.dtype)
     v_cache[:, cache_pos:cache_pos + S] = v.to(v_cache.dtype)
     if S == 1:  # decode

@@ -1,13 +1,15 @@
-"""Model assembly, dense GQA slice: embedding, a stack of ATTN blocks with
-dense SwiGLU FFNs, final norm and unembedding, for serving (prefill and
-decode).
+"""Model assembly for serving (prefill and decode): embedding, a stack of
+blocks, final norm and unembedding.  Ported block kinds: ATTN (full causal
+GQA attention), SWA (sliding-window attention over a ring cache) and
+HYBRID (Hymba: sliding-window attention and a mamba mixer in parallel on
+the same input, mixed by ``beta``), each followed by a dense SwiGLU FFN.
 
 Layers are grouped into *periods* (one repetition of the block pattern)
 and parameters are stacked over periods, keeping the JAX package's
 parameter tree (``{"embed", "unembed", "final_norm", "layers": {"e0":
 ...}}``) so JAX-initialised weights load by key.  Where JAX scans over
-periods, this runs a Python loop.  Other block kinds, MoE and the
-training mode raise ``NotImplementedError`` until their slices land.
+periods, this runs a Python loop.  MAMBA, MLSTM and SLSTM blocks, MoE and
+the training mode raise ``NotImplementedError`` until their slices land.
 """
 from __future__ import annotations
 
@@ -17,9 +19,10 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, HYBRID, SWA, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import dense_init, rms_norm, swiglu
 
 
@@ -30,9 +33,10 @@ class EntrySpec(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class ModelOptions:
-    """Build-time knobs: the attention chunk sizes."""
+    """Build-time knobs: the attention and SSD-scan chunk sizes."""
     q_chunk: int = 512
     kv_chunk: int = 512
+    ssm_chunk: int = 256
 
 
 def layer_plan(cfg: ModelConfig) -> Tuple[Tuple[EntrySpec, ...], int]:
@@ -52,10 +56,10 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_entry(spec: EntrySpec) -> None:
-    if spec.kind != ATTN or spec.use_moe:
+    if spec.kind not in (ATTN, SWA, HYBRID) or spec.use_moe:
         raise NotImplementedError(
-            f"block kind {spec.kind!r} (moe={spec.use_moe}): only dense "
-            f"ATTN blocks are ported")
+            f"block kind {spec.kind!r} (moe={spec.use_moe}): only ATTN, SWA "
+            f"and HYBRID blocks with dense FFNs are ported")
 
 
 # ---------------------------------------------------------------------------
@@ -67,6 +71,12 @@ def _init_entry(gen, spec: EntrySpec, cfg: ModelConfig, dtype, n: int):
     ones = dict(dtype=dtype, device=gen.device)
     p: Dict[str, Any] = {"ln1": torch.ones((n, d), **ones)}
     p["attn"] = attn_mod.init_attn_params(gen, cfg, dtype, lead=(n,))
+    if spec.kind == HYBRID:
+        p["mamba"] = ssm_mod.init_ssm_params(
+            gen, d, cfg.n_heads, cfg.head_dim, cfg.ssm_state, dtype,
+            lead=(n,))
+        p["beta"] = torch.ones((n, 2), dtype=torch.float32,
+                               device=gen.device)
     p["ln2"] = torch.ones((n, d), **ones)
     if f:
         p["ffn"] = {"w1": dense_init(gen, (d, f), dtype, lead=(n,)),
@@ -98,15 +108,28 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda"):
-    """Zero cache tree, stacked over periods: {'e0': {'k', 'v'}, ...}."""
+    """Zero cache tree, stacked over periods: {'e0': {'k', 'v'}, ...}.
+    Window layers (SWA, HYBRID) hold a ring of min(window, max_len)
+    slots; HYBRID adds the mamba state ``ssm`` (fp32) and the conv carry
+    ``conv`` (model dtype)."""
+    dtype = model_dtype(cfg)
     entries, n_periods = layer_plan(cfg)
     cache = {}
     for i, spec in enumerate(entries):
         _check_entry(spec)
-        k = torch.zeros((n_periods, batch, max_len, cfg.n_kv_heads,
-                         cfg.head_dim), dtype=model_dtype(cfg),
-                        device=device)
-        cache[f"e{i}"] = {"k": k, "v": torch.zeros_like(k)}
+        smax = min(cfg.window, max_len) if spec.kind in (SWA, HYBRID) \
+            and cfg.window else max_len
+        k = torch.zeros((n_periods, batch, smax, cfg.n_kv_heads,
+                         cfg.head_dim), dtype=dtype, device=device)
+        c = {"k": k, "v": torch.zeros_like(k)}
+        if spec.kind == HYBRID:
+            c["ssm"] = torch.zeros((n_periods, batch, cfg.n_heads,
+                                    cfg.head_dim, cfg.ssm_state),
+                                   dtype=torch.float32, device=device)
+            c["conv"] = torch.zeros((n_periods, batch, ssm_mod.CONV_W - 1,
+                                     cfg.n_heads * cfg.head_dim),
+                                    dtype=dtype, device=device)
+        cache[f"e{i}"] = c
     return cache
 
 
@@ -122,31 +145,57 @@ def _apply_ffn(p, x):
 
 def _apply_entry(p, spec: EntrySpec, x, positions, cfg, opts, mode: str,
                  cache=None, cache_pos=None):
-    """One ATTN block.  Returns (x, new_cache)."""
+    """One ATTN, SWA or HYBRID block.  Returns (x, new_cache).  In decode
+    every state (k/v, and for HYBRID ``ssm``/``conv``) is written into
+    ``cache`` in place."""
     _check_entry(spec)
     h = rms_norm(x, p["ln1"])
-    y, kv = _attention(p["attn"], h, positions, cfg, opts, mode, cache,
-                       cache_pos)
+    window = cfg.window if spec.kind in (SWA, HYBRID) else 0
+    y, new_cache = _attention(p["attn"], h, positions, cfg, window, opts,
+                              mode, cache, cache_pos)
+    if spec.kind == HYBRID:
+        ssm_state = conv_state = None
+        if mode == "decode":
+            ssm_state, conv_state = cache["ssm"], cache["conv"]
+        ym, (st, cv) = ssm_mod.mamba_forward(
+            p["mamba"], h, n_heads=cfg.n_heads, head_dim=cfg.head_dim,
+            state=cfg.ssm_state, chunk=opts.ssm_chunk, ssm_state=ssm_state,
+            conv_state=conv_state)
+        if mode == "decode":
+            ssm_state.copy_(st)
+            conv_state.copy_(cv)
+        else:
+            new_cache.update(ssm=st, conv=cv)
+        beta = p["beta"].to(x.dtype)
+        y = 0.5 * (beta[0] * y + beta[1] * ym)
     x = x + y
     x = x + _apply_ffn(p, rms_norm(x, p["ln2"]))
-    return x, kv
+    return x, new_cache
 
 
-def _attention(ap, h, positions, cfg, opts, mode, cache, cache_pos):
+def _attention(ap, h, positions, cfg, window, opts, mode, cache, cache_pos):
     """Attention sub-block, prefill or decode.  Returns (y, cache)."""
     if mode == "prefill":
         # build the cache from scratch; attention runs the flash kernel
-        # (causal, q_offset 0, S == Sk)
+        # (causal, q_offset 0, S == Sk, the layer's window)
         q, k, v = attn_mod.project_qkv(ap, h, cfg, positions)
-        out = ops.flash_attention(q, k, v, causal=True, window=0)
+        out = ops.flash_attention(q, k, v, causal=True, window=window)
+        if window:
+            # ring cache: slot i must hold absolute position p with
+            # p % w == i, so the kept tail is rolled by S % w
+            S = h.shape[1]
+            w = min(window, S)
+            k = torch.roll(k[:, -w:], S % w, dims=1)
+            v = torch.roll(v[:, -w:], S % w, dims=1)
         dtype = model_dtype(cfg)
         return attn_mod.o_proj(out, ap["wo"]), {"k": k.to(dtype),
                                                 "v": v.to(dtype)}
     if mode != "decode":
         raise NotImplementedError(f"mode {mode!r}")
     y, kv = attn_mod.attention_block(
-        ap, h, positions, cfg, kv_cache=(cache["k"], cache["v"]),
-        cache_pos=cache_pos, q_chunk=opts.q_chunk, kv_chunk=opts.kv_chunk)
+        ap, h, positions, cfg, layer_window=window,
+        kv_cache=(cache["k"], cache["v"]), cache_pos=cache_pos,
+        q_chunk=opts.q_chunk, kv_chunk=opts.kv_chunk)
     return y, {"k": kv[0], "v": kv[1]}
 
 
@@ -174,8 +223,9 @@ def embed_inputs(params, cfg: ModelConfig, tokens, embeds):
 def _stack_forward(params, x, cfg, opts, mode, cache=None, cache_pos=None,
                    positions=None):
     """Runs the periods in order.  Returns (x, new_cache).  In decode the
-    new k/v are written into ``cache`` in place and ``cache`` itself is
-    returned; prefill returns freshly stacked caches."""
+    new states (k/v, ssm, conv) are written into ``cache`` in place and
+    ``cache`` itself is returned; prefill returns freshly stacked
+    caches."""
     entries, n_periods = layer_plan(cfg)
     built: Dict[str, list] = {f"e{i}": [] for i in range(len(entries))}
     for p in range(n_periods):

@@ -100,21 +100,30 @@ def test_dense_init_is_seeded():
 
 @pytest.mark.parametrize("reduced", [False, True])
 def test_qwen2_config_matches_jax(reduced):
-    t, j = get_config("qwen2-1.5b"), jax_get_config("qwen2-1.5b")
+    _config_matches_jax("qwen2-1.5b", reduced)
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_hymba_config_matches_jax(reduced):
+    _config_matches_jax("hymba-1.5b", reduced)
+
+
+def _config_matches_jax(name, reduced):
+    t, j = get_config(name), jax_get_config(name)
     if reduced:
         t, j = t.reduced(), j.reduced()
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert t.blocks == j.blocks and t.n_params() == j.n_params()
-    assert list_configs() == ("qwen2-1.5b",)
+    assert list_configs() == ("hymba-1.5b", "qwen2-1.5b")
 
 
 def test_params_from_jax_bf16_and_readonly():
     a = np.arange(12, dtype=np.float32).reshape(3, 4)
     tree = {"w": a.astype(ml_dtypes.bfloat16), "n": {"b": a}}
     tree["n"]["b"].setflags(write=False)
-    out = params_from_jax(tree, "cpu", torch.bfloat16)
+    out = params_from_jax(tree, "cpu")
     assert out["w"].dtype == torch.bfloat16
-    assert out["n"]["b"].dtype == torch.bfloat16
+    assert out["n"]["b"].dtype == torch.float32     # each leaf keeps its dtype
     np.testing.assert_array_equal(out["w"].float().numpy(), a)
     out["n"]["b"] += 1          # writable: the bridge copied
     np.testing.assert_array_equal(a, np.arange(12).reshape(3, 4))

@@ -13,7 +13,7 @@ from repro.configs import get_config as jax_get_config
 from repro.launch.serve import serve as jax_serve
 from repro.models import transformer as JT
 from repro_torch.configs import get_config
-from repro_torch.configs.base import SWA
+from repro_torch.configs.base import MLSTM
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as serve_mod
@@ -28,10 +28,9 @@ def configs(dtype):
                                 dtype=dtype))
 
 
-def jax_and_port_params(jcfg, dtype):
+def jax_and_port_params(jcfg):
     jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu",
-                         getattr(torch, dtype))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
     return jp, tp
 
 
@@ -57,7 +56,7 @@ def prompts(vocab, B=2, S=64, seed=1):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_logits_and_cache(dtype):
     cfg, jcfg = configs(dtype)
-    jp, tp = jax_and_port_params(jcfg, dtype)
+    jp, tp = jax_and_port_params(jcfg)
     toks = prompts(cfg.vocab)
     jl, jc = JT.prefill(jp, jcfg, jnp.asarray(toks),
                         opts=JT.ModelOptions(q_chunk=32, kv_chunk=32))
@@ -76,7 +75,7 @@ def test_decode_steps_teacher_forced(dtype):
     """8 decode steps fed the same tokens on both sides, logits compared
     at every step (one near-tie argmax cannot cascade)."""
     cfg, jcfg = configs(dtype)
-    jp, tp = jax_and_port_params(jcfg, dtype)
+    jp, tp = jax_and_port_params(jcfg)
     S, steps = 32, 8
     toks = prompts(cfg.vocab, S=S, seed=2)
     jopts = JT.ModelOptions(q_chunk=32, kv_chunk=32)
@@ -100,7 +99,7 @@ def test_serve_matches_jax_serve():
     """Same seed, same prompts (the same numpy rng calls), identical
     tokens in f32; the wrappers never launch a kernel on the CPU."""
     cfg, jcfg = configs("float32")
-    jp, tp = jax_and_port_params(jcfg, "float32")
+    jp, tp = jax_and_port_params(jcfg)
     kw = dict(n_requests=5, batch=2, prompt_len=32, gen_len=6, seed=0)
     jt, _ = jax_serve(jcfg, **kw)
     ops.flash_attention.launches = ops.flash_decode.launches = 0
@@ -157,8 +156,7 @@ def test_unported_paths_raise():
     cfg, _ = configs("float32")
     gen = torch.Generator()
     with pytest.raises(NotImplementedError):
-        T.init_params(gen, dataclasses.replace(cfg, block_pattern=(SWA,),
-                                               window=16))
+        T.init_params(gen, dataclasses.replace(cfg, block_pattern=(MLSTM,)))
     with pytest.raises(NotImplementedError):
         serve_mod.serve(cfg, device="cpu", serving=object())
 
