@@ -6,12 +6,16 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 
 1. refuse to run without CUDA; print the card's name and power limit;
 2. build every CUDA kernel of the serving paths from ``src/repro_torch/csrc``
-   (one nvcc per source, in parallel) and print the build seconds;
+   (one nvcc per source, in parallel) and print the build seconds and each
+   kernel's registers, shared memory and spills as ptxas reports them;
 3. hold each kernel, through the wrapper the main paths call, against its
    plain torch version on the card, in bf16, at the tolerance of the JAX
    package's kernel tests (rtol = atol = 2e-2; the SSD scan's final state
    at 1e-2) and with each output row within 2e-2 of its largest
-   reference value, at both models' shapes;
+   reference value, at both models' shapes and at each kernel's edges
+   (ragged tiles and splits, small windows, q_offset, G = 1 and 8,
+   peaked scores); every decode call is repeated and must be bitwise
+   equal, and must run exactly one device kernel under torch.profiler;
 4. serve qwen2-1.5b and then hymba-1.5b at full width and depth with
    seeded random weights through ``repro_torch.launch.serve.serve`` under
    the port's profiler, with every kernel launch counter set to 0 just
@@ -25,7 +29,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 6. time each kernel at each path's shapes, its plain version and one
    library call computing the same function where there is one (a
    yardstick the port never calls), beside the least time the card could
-   take for the same work; break a serving step's time down by device
+   take for the same work, and the decode kernel at every split count the
+   planner could choose; break a serving step's time down by device
    kernel.
 
 The line before the last is a JSON object with one entry per kernel and
@@ -36,6 +41,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -75,11 +81,24 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def build_kernels() -> float:
+def build_kernels() -> tuple:
+    """Build every kernel; returns (seconds, ptxas's lines: each kernel's
+    registers, shared memory and spills)."""
     from repro_torch.kernels import build
     t0 = time.monotonic()
     build.build(["flash_attention", "decode_attention", "ssm_scan"])
-    return time.monotonic() - t0
+    seconds = time.monotonic() - t0
+    lines = []
+    for name, text in build.PTXAS.items():
+        entry = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1)
+            elif entry and ("Used" in line or "spill" in line):
+                lines.append(f"{name}: {entry}: "
+                             f"{line.split('info    :')[-1].strip()}")
+    return seconds, lines
 
 
 def _randn(shape, gen, scale=1.0, dtype=torch.bfloat16):
@@ -150,7 +169,13 @@ def check_kernels() -> tuple:
             (1, 300, 300, 8, 2, 128, 64, 0, 1.0),
             (B, 1536, 1536, 25, 5, 64, 1024, 0, 1.0),
             (B, 1536, 1536, 25, 5, 64, 0, 0, 1.0),
-            (1, 300, 300, 10, 2, 64, 64, 0, 4.0)]:
+            (1, 300, 300, 10, 2, 64, 64, 0, 4.0),
+            # the wgmma kernel's edges: S and Sk off its 64-row tiles, a
+            # window under one kv tile, q_offset at D = 64, peaked scores
+            (1, 200, 200, 4, 1, 64, 48, 0, 4.0),
+            (2, 100, 356, 8, 2, 64, 0, 256, 1.0),
+            (1, 130, 130, 12, 2, 128, 16, 0, 4.0),
+            (2, 77, 333, 12, 2, 128, 40, 256, 4.0)]:
         q = _randn((b, s, h, d), gen, q_scale)
         k = _randn((b, sk, hkv, d), gen)
         v = _randn((b, sk, hkv, d), gen)
@@ -171,6 +196,37 @@ def check_kernels() -> tuple:
             for length in (1, smax // 3, smax):
                 note("flash_decode", ops.flash_decode(q, kc, vc, length),
                      fd.flash_decode_plain(q, kc, vc, length))
+    # the one-launch cluster kernel's edges, each twice (bitwise equal):
+    # lengths off 16/32/64 and 1, G = 1 and G = 8 at both head dims, flat
+    # and peaked scores
+    for h, hkv, d, smax, lengths in (
+            (12, 2, 128, 544, (1, 17, 33, 100, 527)),
+            (25, 5, 64, 1024, (1, 47, 1000)),
+            (2, 2, 128, 300, (1, 31, 299)), (2, 2, 64, 300, (5, 129)),
+            (16, 2, 128, 600, (1, 63, 600)), (16, 2, 64, 600, (9, 257))):
+        for q_scale, kv_scale in ((0.5, 0.5), (4.0, 1.0)):
+            q = _randn((B, h, d), gen, q_scale)
+            kc = _randn((B, smax, hkv, d), gen, kv_scale)
+            vc = _randn((B, smax, hkv, d), gen, kv_scale)
+            for length in lengths:
+                out = ops.flash_decode(q, kc, vc, length)
+                again = ops.flash_decode(q, kc, vc, length)
+                torch.cuda.synchronize()
+                if not torch.equal(out, again):
+                    raise AssertionError(f"flash_decode not deterministic at "
+                                         f"{(h, hkv, d, smax, length)}")
+                note("flash_decode", out,
+                     fd.flash_decode_plain(q, kc, vc, length))
+    # a last split one key long (the planner never cuts one, so the
+    # launcher is called with the splits): 8 x 64 keys over 449, 8 x 128
+    # over 897
+    for h, hkv, d, smax, length, splits in ((12, 2, 128, 544, 449, (8, 64)),
+                                            (25, 5, 64, 1024, 897, (8, 128))):
+        q = _randn((B, h, d), gen, 4.0)
+        kc = _randn((B, smax, hkv, d), gen)
+        vc = _randn((B, smax, hkv, d), gen)
+        note("flash_decode", _decode_at(q, kc, vc, length, *splits),
+             fd.flash_decode_plain(q, kc, vc, length))
     # stale cache: what lies at or beyond `length` must not leak in
     for d in (128, 64):
         q = _randn((1, 2, d), gen)
@@ -202,7 +258,42 @@ def check_kernels() -> tuple:
                                  f"{(b, s, nh, hd, st, chunk, decay)}")
         note("ssm_scan", y, yp)
         _err(hf, hp, STATE_TOL, rows=False)
+    # one device kernel per decode call, at both paths' shapes
+    for h, hkv, d, smax in ((12, 2, 128, 544), (25, 5, 64, 1024)):
+        q = _randn((B, h, d), gen, 0.5)
+        kc = _randn((B, smax, hkv, d), gen, 0.5)
+        distinct, per_call = device_kernels(
+            lambda: ops.flash_decode(q, kc, kc, smax - 7))
+        if distinct != 1 or per_call > 1:
+            raise AssertionError(f"flash_decode ran {distinct} distinct "
+                                 f"device kernels, {per_call} per call; "
+                                 f"want one")
     return errs, ratios
+
+
+def device_kernels(fn, iters: int = 5, attempts: int = 3) -> tuple:
+    """(distinct device kernels, launches per call) of ``fn`` under
+    torch.profiler.  A process's first profiled windows can drop activity
+    records (seen on an H100: all of them, or 1 of 5), never add any; so
+    one window is profiled first and discarded, a window with no record
+    is taken again, and the distinct kernel names are what a check should
+    rest on (launches per call can only read low)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def window():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        return [e for e in prof.key_averages()
+                if e.self_device_time_total > 0]
+
+    window()
+    for _ in range(attempts):
+        kernels = window()
+        if kernels:
+            return len(kernels), sum(e.count for e in kernels) / iters
+    raise RuntimeError("torch.profiler recorded no device kernel")
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -252,11 +343,33 @@ def _pairs(s: int, window: int) -> int:
     return sum(min(i + 1, w) for i in range(s))
 
 
-def time_kernels(cfg, prompt: int) -> dict:
+def _decode_at(q, kc, vc, length: int, n_splits: int, keys_per_split: int):
+    """The decode kernel's launcher with the splits given, bypassing the
+    planner and the launch counter: [0, length) in ``n_splits`` ranges of
+    ``keys_per_split`` keys."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as fd
+    if not (n_splits - 1) * keys_per_split < length \
+            <= n_splits * keys_per_split:
+        raise ValueError(f"{n_splits} x {keys_per_split} keys do not cover "
+                         f"length {length}")
+    b, h, d = q.shape
+    out = torch.empty_like(q)
+    err = fd._lib().flash_decode_fwd_bf16(
+        q.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b, h,
+        kc.shape[2], kc.shape[1], d, length, n_splits, keys_per_split,
+        torch.cuda.current_stream().cuda_stream)
+    build.check(err, "flash_decode_fwd_bf16")
+    return out
+
+
+def time_kernels(cfg, prompt: int) -> tuple:
     """Each kernel of the path (through the main path's wrapper), its plain
     version, a library yardstick and the bound, at the path's shapes:
     prefill attention over the prompt, a decode step against the cache a
-    mid-generation step sees, and the SSD scan of a prefill."""
+    mid-generation step sees, and the SSD scan of a prefill.  Returns
+    ({kernel: times}, {split count: decode kernel device ms} over every
+    count up to ``MAX_SPLITS``, with the planner's own count)."""
     from repro_torch.configs.base import HYBRID, SWA
     from repro_torch.kernels import decode_attention as fd
     from repro_torch.kernels import flash_attention as fa
@@ -304,6 +417,16 @@ def time_kernels(cfg, prompt: int) -> dict:
                library_ms=lambda: F.scaled_dot_product_attention(
                    qd[:, :, None], kl, vl, enable_gqa=True))
     res["flash_decode"] = _timed(fns, *_bound(flops, nbytes))
+    # the same call at every split count, [0, length) cut as the planner
+    # cuts it, to hold the planner's choice against the alternatives
+    splits = {}
+    for want in range(1, fd.MAX_SPLITS + 1):
+        per = -(-length // want)
+        n = -(-length // per)
+        splits.setdefault(n, device_ms(
+            lambda n=n, per=per: _decode_at(qd, kc, vc, length, n, per),
+            iters=50))
+    plan = fd.plan_splits(B, hkv, length, fd._sm_count(qd.device))
     if HYBRID in cfg.blocks:
         st, chunk = cfg.ssm_state, min(64, prompt)   # serve's ssm_chunk
         xv, ld, Bm, Cm, _ = _ssm_inputs(gen, B, prompt, h, d, st)
@@ -320,7 +443,7 @@ def time_kernels(cfg, prompt: int) -> dict:
                    plain_ms=lambda: ss.ssm_scan_plain(xv, ld, Bm, Cm,
                                                       chunk=chunk))
         res["ssm_scan"] = _timed(fns, *_bound(flops, nbytes))
-    return res
+    return res, dict(planner=list(plan), device_ms=splits)
 
 
 def _timed(fns: dict, bound_ms: float, bound_by: str) -> tuple:
@@ -463,10 +586,9 @@ def check_against_cpu(cfg, prompt: int, window: int) -> float:
     """A 2-layer model at full width (window layers at ``window``): kernels
     on the card against the same bf16 weights on the CPU through the plain
     versions, prefill plus 4 teacher-forced decode steps.  Both sides round
-    to bf16 at the same points and differ by accumulation order (and the
-    decode kernel's fp32 p) only, a few bf16 ulps at the logits' scale; so
-    the max abs logit error is held to 2e-2 of the largest reference
-    logit, per step.
+    to bf16 at the same points and differ by accumulation order only, a
+    few bf16 ulps at the logits' scale; so the max abs logit error is held
+    to 2e-2 of the largest reference logit, per step.
 
     The seeded init takes wq/wk's fan-in from the head axis, as the JAX
     package does, which at these widths gives raw attention scores of std
@@ -540,10 +662,12 @@ def run_path(name: str) -> dict:
     check_replay(cfg, params, srv["tokens"], prompt)
     print(f"replay {name}: every batch reproduces serve's tokens",
           flush=True)
-    times = time_kernels(cfg, prompt)
+    times, splits = time_kernels(cfg, prompt)
     for kname, (t, calls) in times.items():
         print(f"{name} {kname}: device {json.dumps(t)}; back-to-back call "
               f"{json.dumps(calls)}", flush=True)
+    print(f"{name} flash_decode by split count: {json.dumps(splits)}",
+          flush=True)
     if "ssm_scan" in times:
         print("ssm_scan library_ms: null, no single PyTorch call computes "
               "a selective (SSD) scan", flush=True)
@@ -566,7 +690,10 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     card = card_line()
     print(f"card: {card}", flush=True)
-    print(f"build_s: {build_kernels():.1f}", flush=True)
+    seconds, ptxas = build_kernels()
+    print(f"build_s: {seconds:.1f}", flush=True)
+    for line in ptxas:
+        print(f"ptxas {line}", flush=True)
     errs, ratios = check_kernels()
     print(f"kernel checks passed: max abs err {errs}, largest row "
           f"err / row max {ratios}", flush=True)

@@ -1,5 +1,6 @@
 // Small device helpers shared by the attention kernels: cp.async tile
-// loads, ldmatrix fragment loads and the bf16 m16n8k16 tensor-core MMA.
+// loads in commit groups, ldmatrix fragment loads and the bf16 m16n8k16
+// tensor-core MMA.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,9 +29,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
+// close this thread's current group of cp.async copies
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -65,6 +72,13 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit (flush-to-zero: 2^-1e30 is 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float quad_max(float x) {

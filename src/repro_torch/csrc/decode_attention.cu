@@ -5,217 +5,364 @@
 // Replaces the TPU kernel repro/kernels/decode_attention.py::_decode_kernel
 // (wrapper flash_decode_fwd).  Same function: fp32 scores scaled by
 // D^-0.5, positions >= length masked with a finite -1e30, fp32 softmax
-// weights, fp32 accumulation, output in the input dtype.
+// statistics and accumulation, output in the input dtype.  One rounding
+// differs: p goes to the tensor cores in bf16, as in the plain version and
+// the JAX model's decode_attention (p cast to the cache dtype), where the
+// TPU kernel keeps p in fp32.
 //
-// Design.  The TPU grid walks kv blocks sequentially and merges (m, l, acc)
-// in the same carry.  On the H100 blocks run in parallel in no order and
-// B * Hkv blocks would leave most of the 132 SMs idle, so the cache range
-// [0, length) is split (flash-decoding):
-//   - flash_decode_split_kernel: one block per (split, kv head, batch)
-//     covers all G q heads of that kv head, walks its range in 64-key
-//     tiles staged in shared memory by cp.async (nothing at or beyond
-//     `length` is read), and writes fp32 partial (m, l, acc) to scratch;
-//   - flash_decode_combine_kernel: one block per (batch, q head) merges the
-//     splits in a fixed order, so results are deterministic like the
-//     reference's sequential carry.
 // Bound: bytes.  Each key brings 2*D*2 bytes of K and V for 4*G*D FLOPs
-// (about 6 FLOP/byte at G = 6), far below the card's ridge, so the
-// products run on the CUDA cores in fp32 and the design only has to keep
-// enough blocks in flight to stream the cache at full rate.
+// (about 6 FLOP/byte at G = 6), far below the card's ridge.  But the
+// serving caches are small (2-5 MB), so a call's time is the length of
+// its serial chain (launch, load, math, merge), not the bytes streamed.
+// The design shortens that chain:
+//   - one launch.  [0, length) is split into n_splits <= 8 ranges of
+//     keys_per_split keys (any count, not whole tiles), one block each,
+//     and the splits of one (batch, kv head) form one thread-block
+//     cluster.  Each block owns a chunk of the G*D outputs and stores its
+//     partial acc for every chunk straight into the owner's shared memory
+//     (distributed shared memory), and its (m, l) into every block's; after
+//     one cluster barrier each block merges its chunk from its own shared
+//     memory in rank order: no scratch, no second kernel, and the same
+//     order of sums on every call (bitwise deterministic);
+//   - every load in flight at once.  Each of the 4 warps takes a
+//     contiguous quarter of the block's keys and issues cp.async for all
+//     of it up front, one commit group per 16-key step, into a ring of
+//     NST <= 4 steps (deep enough for the serving shapes; longer ranges
+//     refill the ring as it drains), and computes on the first step while
+//     the rest land.  Nothing at or beyond `length` is read;
+//   - both products on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
+//     accumulate): A is the G <= 8 q rows of the kv head, zero-padded to
+//     16; K fragments come from ldmatrix, V fragments from ldmatrix.trans,
+//     and P is re-packed from the S accumulators in registers, as in the
+//     prefill kernel's fragments.  The 4 warps merge their (m, l, acc)
+//     through shared memory, every thread taking a share.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace repro_torch {
 namespace {
 
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 128;
-constexpr int kMaxG = 8;       // q heads per kv head
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxG = 8;   // q heads per kv head
+constexpr int kStep = 16;  // keys per MMA step
+constexpr int kMaxSplits = 8;  // the largest portable cluster
+
+// the two halves of cluster.sync(): arrive early, wait where it matters
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
-    const __nv_bfloat16* __restrict__ vc, float* __restrict__ part_m,
-    float* __restrict__ part_l, float* __restrict__ part_acc, int H, int Hkv,
-    int Smax, int length, int keys_per_split, float scale) {
-  constexpr int LDK = D + 8;  // padded K rows: conflict-free 16-byte reads
-  constexpr int CH = D / 8;
-  __shared__ __align__(16) __nv_bfloat16 sK[kBK * LDK];
-  __shared__ __align__(16) __nv_bfloat16 sV[kBK * D];
-  __shared__ float sQ[kMaxG][D];
-  __shared__ float sS[kMaxG][kBK];
-  __shared__ float sM[kMaxG], sL[kMaxG], sA[kMaxG];
+constexpr int smem_bytes(int n_stages) {
+  // Q (16 padded rows) + per warp n_stages steps of K and V
+  return (16 + 2 * kWarps * n_stages * kStep) * (D + 8) * 2;
+}
 
+template <int D, int NST>
+__global__ void __launch_bounds__(kThreads) flash_decode_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
+    const __nv_bfloat16* __restrict__ vc, __nv_bfloat16* __restrict__ out,
+    int H, int Hkv, int Smax, int length, int keys_per_split,
+    float scale_log2) {
+  constexpr int LD = D + 8;  // padded rows: conflict-free ldmatrix
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  constexpr int STEP = kStep * LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sK = sQ + 16 * LD;
+  __nv_bfloat16* sV = sK + kWarps * NST * STEP;
+  // after the loop the ring holds the warps' partial acc, fp32
+  float* wAcc = reinterpret_cast<float*>(sK);
+  __shared__ float wM[kWarps][kMaxG], wL[kWarps][kMaxG];
+  // what the cluster's blocks send this one: (m, l) of every split and
+  // acc of every split for this block's chunk of the outputs
+  __shared__ float cM[kMaxSplits][kMaxG], cL[kMaxSplits][kMaxG];
+  __shared__ float cAcc[kMaxG * D + kMaxSplits];
+
+  cg::cluster_group cluster = cg::this_cluster();
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int NS = gridDim.x;
+  const int NS = gridDim.x;  // = the cluster's size
   const int G = H / Hkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  cluster_arrive();  // matched by the wait before the first remote write
 
-  for (int i = tid; i < G * D; i += kThreads)
-    sQ[i / D][i % D] =
-        __bfloat162float(q[((long)b * H + hk * G + i / D) * D + i % D]);
-  if (tid < kMaxG) {
-    sM[tid] = kNegInf;
-    sL[tid] = 0.f;
+  // Q: rows 0..G-1 of this kv head's q heads, rows G..15 zero
+  const __nv_bfloat16* qb = q + ((long)b * H + (long)hk * G) * D;
+  for (int i = tid; i < 16 * CH; i += kThreads) {
+    const int r = i / CH, c = (i % CH) * 8;
+    cp_async16(sQ + r * LD + c, r < G ? qb + r * D + c : qb, r < G);
   }
-  float acc[kMaxG];
-#pragma unroll
-  for (int gg = 0; gg < kMaxG; ++gg) acc[gg] = 0.f;
+  cp_async_commit();
 
+  // this warp's keys: a contiguous quarter of the block's range
+  const int start = split * keys_per_split;
+  const int stop = min(length, start + keys_per_split);
+  const int per_warp = (stop - start + kWarps - 1) / kWarps;
+  const int w_lo = start + warp * per_warp;
+  const int w_hi = min(stop, w_lo + per_warp);
+  const int n_steps = w_hi > w_lo ? (w_hi - w_lo + kStep - 1) / kStep : 0;
   const long rs = (long)Hkv * D;
   const __nv_bfloat16* kb = kc + (long)b * Smax * rs + (long)hk * D;
   const __nv_bfloat16* vb = vc + (long)b * Smax * rs + (long)hk * D;
-  const int start = split * keys_per_split;
-  const int stop = min(length, start + keys_per_split);
+  __nv_bfloat16* wK = sK + warp * NST * STEP;
+  __nv_bfloat16* wV = sV + warp * NST * STEP;
 
-  for (int k_lo = start; k_lo < stop; k_lo += kBK) {
-    __syncthreads();  // previous tile fully consumed; sQ/sM visible
-    for (int i = tid; i < kBK * CH; i += kThreads) {
+  // one commit group per step; rows past this warp's keys are zeroed,
+  // never read
+  auto load = [&](int step) {
+    const int k0 = w_lo + step * kStep;
+    const int slot = (step % NST) * STEP;
+    for (int i = lane; i < kStep * CH; i += 32) {
       const int r = i / CH, c = (i % CH) * 8;
-      const bool ok = k_lo + r < stop;
-      const long off = (long)(k_lo + r) * rs + c;
-      cp_async16(sK + r * LDK + c, ok ? kb + off : kb, ok);
-      cp_async16(sV + r * D + c, ok ? vb + off : vb, ok);
+      const bool ok = k0 + r < w_hi;
+      const long off = (long)(k0 + r) * rs + c;
+      cp_async16(wK + slot + r * LD + c, ok ? kb + off : kb, ok);
+      cp_async16(wV + slot + r * LD + c, ok ? vb + off : vb, ok);
     }
-    cp_async_wait_all();
-    __syncthreads();
+  };
+#pragma unroll
+  for (int s = 0; s < NST; ++s) {
+    if (s < n_steps) load(s);
+    cp_async_commit();
+  }
 
-    // scores: thread -> one key, half of the G heads
-    {
-      const int key = tid & (kBK - 1), gs = tid / kBK;
-      const bool valid = k_lo + key < stop;
-      for (int gg = gs; gg < G; gg += kThreads / kBK) {
-        float dot = 0.f;
+  cp_async_wait<NST>();  // this thread's part of Q has landed
+  __syncthreads();       // and everyone's
+  uint32_t qf[D / 16][4];
 #pragma unroll
-        for (int c = 0; c < D; c += 8) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(sK + key * LDK + c);
-          const __nv_bfloat162* p2 =
-              reinterpret_cast<const __nv_bfloat162*>(&raw);
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldmatrix_x4(qf[kk], sQ + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
+                            kk * 16 + 8 * (lane >> 4));
+
+  float acc[D / 8][4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 f = __bfloat1622float2(p2[e]);
-            dot += f.x * sQ[gg][c + 2 * e] + f.y * sQ[gg][c + 2 * e + 1];
-          }
-        }
-        sS[gg][key] = valid ? dot * scale : kNegInf;
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  // this thread's rows: g and g + 8 (only rows < G are real)
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<NST - 1>();  // step `step` has landed
+    __syncwarp();
+    const __nv_bfloat16* tK = wK + (step % NST) * STEP;
+    const __nv_bfloat16* tV = wV + (step % NST) * STEP;
+    const int k0 = w_lo + step * kStep;
+
+    // S = Q K^T over 16 keys: two n-tiles of 8
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, tK + ((lane & 7) + 8 * (lane >> 4)) * LD + kk * 16 +
+                          8 * ((lane >> 3) & 1));
+      mma_bf16_16816(s[0], qf[kk], bf[0], bf[1]);
+      mma_bf16_16816(s[1], qf[kk], bf[2], bf[3]);
+    }
+
+    // mask keys past this warp's range, online softmax in the log2 domain
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = k0 + j * 8 + 2 * t + (e & 1);
+        const float x = kp < w_hi ? s[j][e] * scale_log2 : kNegInf;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     }
-    __syncthreads();
-
-    // online-softmax update: one warp per head
-    for (int gg = warp; gg < G; gg += kThreads / 32) {
-      const float s0 = sS[gg][lane], s1 = sS[gg][lane + 32];
-      const float m_old = sM[gg];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      sS[gg][lane] = p0;
-      sS[gg][lane + 32] = p1;
-      const float sum = warp_sum(p0 + p1);
-      if (lane == 0) {
-        const float a = expf(m_old - m_new);
-        sA[gg] = a;
-        sL[gg] = sL[gg] * a + sum;
-        sM[gg] = m_new;
+    float alpha[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      const float m_new = fmaxf(m_r[row], quad_max(mx[row]));
+      alpha[row] = ex2(m_r[row] - m_new);
+      m_r[row] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(s[j][e] - m_r[e >> 1]);
+        s[j][e] = p;
+        rsum[e >> 1] += p;
       }
     }
-    __syncthreads();
+    l_r[0] = l_r[0] * alpha[0] + rsum[0];
+    l_r[1] = l_r[1] * alpha[1] + rsum[1];
 
-    // acc = acc * alpha + P V: thread -> one dim (at D = 64 the upper
-    // half of the block idles here; correct, not yet fast)
-    if (tid < D) {
+    // O = O * alpha + P V: the S accumulators are the A fragment of one
+    // 16-key k-step
+    const uint32_t pa[4] = {pack_bf16x2(s[0][0], s[0][1]),
+                            pack_bf16x2(s[0][2], s[0][3]),
+                            pack_bf16x2(s[1][0], s[1][1]),
+                            pack_bf16x2(s[1][2], s[1][3])};
 #pragma unroll
-      for (int gg = 0; gg < kMaxG; ++gg) {
-        if (gg < G) {
-          float pv = 0.f;
-#pragma unroll 8
-          for (int key = 0; key < kBK; ++key)
-            pv += sS[gg][key] * __bfloat162float(sV[key * D + tid]);
-          acc[gg] = acc[gg] * sA[gg] + pv;
-        }
-      }
+    for (int n = 0; n < D / 8; n += 2) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+      acc[n + 1][0] *= alpha[0];
+      acc[n + 1][1] *= alpha[0];
+      acc[n + 1][2] *= alpha[1];
+      acc[n + 1][3] *= alpha[1];
+      uint32_t bf[4];
+      ldmatrix_x4_trans(bf, tV + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
+                                n * 8 + 8 * (lane >> 4));
+      mma_bf16_16816(acc[n], pa, bf[0], bf[1]);
+      mma_bf16_16816(acc[n + 1], pa, bf[2], bf[3]);
+    }
+    __syncwarp();  // every lane is done with this slot
+    if (step + NST < n_steps) load(step + NST);
+    cp_async_commit();
+  }
+
+  // the warps' partials -> shared memory (the ring is free now)
+  const float l_w = quad_sum(l_r[0]);
+  __syncthreads();
+  if (g < G) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      wAcc[(warp * kMaxG + g) * D + n * 8 + 2 * t] = acc[n][0];
+      wAcc[(warp * kMaxG + g) * D + n * 8 + 2 * t + 1] = acc[n][1];
+    }
+    if (t == 0) {
+      wM[warp][g] = m_r[0];
+      wL[warp][g] = l_w;
     }
   }
   __syncthreads();
 
-  const long row0 = (long)b * H + hk * G;  // first q head of this kv head
-  if (tid < D) {
+  // the block's partial, warps merged in order, every thread a share;
+  // each value goes straight to the block of the cluster that owns its
+  // output element (a chunk of G*D/NS), and (m, l) go to every block
+  const int chunk = (G * D + NS - 1) / NS;
+  cluster_wait();  // every block of the cluster has started
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int gg = i / D;
+    float m = kNegInf;
 #pragma unroll
-    for (int gg = 0; gg < kMaxG; ++gg)
-      if (gg < G) part_acc[((row0 + gg) * NS + split) * D + tid] = acc[gg];
+    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, wM[w][gg]);
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      a += wAcc[(w * kMaxG + gg) * D + i % D] * ex2(wM[w][gg] - m);
+    const int owner = i / chunk;
+    cluster.map_shared_rank(cAcc, owner)[split * chunk + i - owner * chunk] =
+        a;
+    if (i % D == 0) {
+      float l = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) l += wL[w][gg] * ex2(wM[w][gg] - m);
+      for (int r = 0; r < NS; ++r) {
+        cluster.map_shared_rank(&cM[split][gg], r)[0] = m;
+        cluster.map_shared_rank(&cL[split][gg], r)[0] = l;
+      }
+    }
   }
-  if (tid < G) {
-    part_m[(row0 + tid) * NS + split] = sM[tid];
-    part_l[(row0 + tid) * NS + split] = sL[tid];
+  cluster.sync();  // every partial has landed where it is merged
+
+  // this block's chunk of the outputs: the splits merged in rank order
+  __nv_bfloat16* ob = out + ((long)b * H + (long)hk * G) * D;
+  for (int j = tid; j < chunk && split * chunk + j < G * D; j += kThreads) {
+    const int i = split * chunk + j, gg = i / D;
+    float m = kNegInf;
+    for (int r = 0; r < NS; ++r) m = fmaxf(m, cM[r][gg]);
+    float l = 0.f, a = 0.f;
+    for (int r = 0; r < NS; ++r) {
+      const float w = ex2(cM[r][gg] - m);
+      l += cL[r][gg] * w;
+      a += cAcc[r * chunk + j] * w;
+    }
+    ob[i] = __float2bfloat16(a / fmaxf(l, 1e-30f));
   }
 }
 
-// one block per (batch, q head): merge the splits in order
-__global__ void flash_decode_combine_kernel(const float* __restrict__ part_m,
-                                            const float* __restrict__ part_l,
-                                            const float* __restrict__ part_acc,
-                                            __nv_bfloat16* __restrict__ out,
-                                            int NS, int D) {
-  const long bh = blockIdx.x;
-  const int d = threadIdx.x;
-  const float* pm = part_m + bh * NS;
-  const float* pl = part_l + bh * NS;
-  float m = kNegInf;
-  for (int s = 0; s < NS; ++s) m = fmaxf(m, pm[s]);
-  float l = 0.f, a = 0.f;
-  for (int s = 0; s < NS; ++s) {
-    const float w = expf(pm[s] - m);
-    l += pl[s] * w;
-    a += part_acc[(bh * NS + s) * D + d] * w;
-  }
-  out[bh * D + d] = __float2bfloat16(a / fmaxf(l, 1e-30f));
-}
-
-template <int D>
+template <int D, int NST>
 cudaError_t launch(const void* q, const void* kc, const void* vc, void* out,
-                   float* part_m, float* part_l, float* part_acc, int B,
-                   int H, int Hkv, int Smax, int length, int n_splits,
+                   int B, int H, int Hkv, int Smax, int length, int n_splits,
                    int keys_per_split, cudaStream_t stream) {
-  const dim3 grid(n_splits, Hkv, B);
-  flash_decode_split_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
+  auto* kernel = flash_decode_kernel<D, NST>;
+  constexpr int smem = smem_bytes<D>(NST);
+  // once per instantiation: shared memory above 48 KB
+  static const cudaError_t setup = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (setup != cudaSuccess) return setup;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_splits, Hkv, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(kc),
-      static_cast<const __nv_bfloat16*>(vc), part_m, part_l, part_acc, H, Hkv,
-      Smax, length, keys_per_split, 1.f / sqrtf((float)D));
-  cudaError_t err = cudaGetLastError();
+      static_cast<const __nv_bfloat16*>(vc), static_cast<__nv_bfloat16*>(out),
+      H, Hkv, Smax, length, keys_per_split, scale_log2);
   if (err != cudaSuccess) return err;
-  flash_decode_combine_kernel<<<B * H, D, 0, stream>>>(
-      part_m, part_l, part_acc, static_cast<__nv_bfloat16*>(out), n_splits,
-      D);
   return cudaGetLastError();
+}
+
+// the ring depth: every step of a warp in flight at once, up to 4 steps
+template <int D>
+cudaError_t launch_d(const void* q, const void* kc, const void* vc, void* out,
+                     int B, int H, int Hkv, int Smax, int length,
+                     int n_splits, int keys_per_split, cudaStream_t stream) {
+  const int per_warp = (keys_per_split + kWarps - 1) / kWarps;
+  const int steps = (per_warp + kStep - 1) / kStep;
+  switch (steps <= 1 ? 1 : steps == 2 ? 2 : steps == 3 ? 3 : 4) {
+    case 1:
+      return launch<D, 1>(q, kc, vc, out, B, H, Hkv, Smax, length, n_splits,
+                          keys_per_split, stream);
+    case 2:
+      return launch<D, 2>(q, kc, vc, out, B, H, Hkv, Smax, length, n_splits,
+                          keys_per_split, stream);
+    case 3:
+      return launch<D, 3>(q, kc, vc, out, B, H, Hkv, Smax, length, n_splits,
+                          keys_per_split, stream);
+    default:
+      return launch<D, 4>(q, kc, vc, out, B, H, Hkv, Smax, length, n_splits,
+                          keys_per_split, stream);
+  }
 }
 
 }  // namespace
 }  // namespace repro_torch
 
 // q (B,H,D), caches (B,Smax,Hkv,D), out (B,H,D): bf16, contiguous,
-// D = 64 or 128.
-// part_m/part_l (B,H,n_splits) and part_acc (B,H,n_splits,D): fp32
-// scratch.  Split s covers keys [s*keys_per_split, (s+1)*keys_per_split)
-// clipped to `length`; keys_per_split is a multiple of 64.
-// Returns the launches' cudaError_t (0 on success).
+// D = 64 or 128, H/Hkv <= 8.  Split s covers keys [s*keys_per_split,
+// (s+1)*keys_per_split) clipped to `length`; n_splits <= 8 is the
+// cluster size.  Returns the launch's cudaError_t (0 on success).
 extern "C" int flash_decode_fwd_bf16(const void* q, const void* kc,
-                                     const void* vc, void* out, void* part_m,
-                                     void* part_l, void* part_acc, int B,
-                                     int H, int Hkv, int Smax, int D,
-                                     int length, int n_splits,
-                                     int keys_per_split, void* stream) {
+                                     const void* vc, void* out, int B, int H,
+                                     int Hkv, int Smax, int D, int length,
+                                     int n_splits, int keys_per_split,
+                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* pm = static_cast<float*>(part_m);
-  float* pl = static_cast<float*>(part_l);
-  float* pa = static_cast<float*>(part_acc);
-  if (H % Hkv != 0 || H / Hkv > repro_torch::kMaxG)
+  if (H % Hkv != 0 || H / Hkv > repro_torch::kMaxG || n_splits < 1 ||
+      n_splits > repro_torch::kMaxSplits)
     return (int)cudaErrorInvalidValue;
   if (D == 64)
-    return repro_torch::launch<64>(q, kc, vc, out, pm, pl, pa, B, H, Hkv,
-                                   Smax, length, n_splits, keys_per_split, st);
+    return repro_torch::launch_d<64>(q, kc, vc, out, B, H, Hkv, Smax, length,
+                                     n_splits, keys_per_split, st);
   if (D == 128)
-    return repro_torch::launch<128>(q, kc, vc, out, pm, pl, pa, B, H, Hkv,
-                                    Smax, length, n_splits, keys_per_split,
-                                    st);
+    return repro_torch::launch_d<128>(q, kc, vc, out, B, H, Hkv, Smax,
+                                      length, n_splits, keys_per_split, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,7 +6,9 @@ Each ``.cu`` file becomes its own shared library with a plain C interface
 the headers beside it, so editing a source rebuilds it and nothing stale
 is ever loaded.  All missing libraries are compiled in parallel, one
 ``nvcc`` per source.  Output goes to ``build/repro_torch/`` at the root of
-the checkout.  Nothing here runs at import time.
+the checkout, and ptxas's report of each kernel's registers, shared memory
+and spills (``-Xptxas -v``) to ``PTXAS``.  Nothing here runs at import
+time.
 """
 from __future__ import annotations
 
@@ -22,10 +24,12 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+PTXAS: Dict[str, str] = {}   # {name: nvcc's output} of this process's builds
 
 
 def _nvcc() -> str:
@@ -70,6 +74,7 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
             if proc.returncode != 0:
                 errors.append(f"nvcc {n}.cu failed:\n{out}")
             else:
+                PTXAS[n] = out
                 os.replace(tmp, todo[n])
         if errors:
             raise RuntimeError("\n".join(errors))

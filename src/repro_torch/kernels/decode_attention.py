@@ -9,21 +9,22 @@ skipped, (m, l, acc) carried over a sequential grid axis.
 On the H100 there is no sequential grid to carry the state, and B*Hkv
 blocks would leave most of the 132 SMs idle at serving batch sizes.  The
 kernel (``csrc/decode_attention.cu``) therefore splits [0, length) across
-blocks (flash-decoding): each (split, kv head, batch) block covers all G
-q heads, streams its keys through shared memory and writes fp32 partial
-(m, l, acc) to scratch this wrapper allocates; a second small kernel
-merges the splits per (batch, q head) in a fixed order, so the result is
-deterministic.  What bounds it: bytes.  Every key costs 4*D bytes of K and
-V for about 4*G*D FLOPs, so the kernel reads each valid cache row once,
-reads nothing at or beyond ``length``, and picks the number of splits so
-that B*Hkv*splits fills the card's SMs.
+blocks (flash-decoding), ``plan_splits`` choosing the split in keys.
+The splits of one (batch, kv head)
+form one thread-block cluster and merge their partial (m, l, acc) through
+distributed shared memory in a fixed order, inside the same launch: one
+kernel per call, no scratch, bitwise-deterministic results.  What bounds
+it: bytes, about 6 FLOP per byte; but at serving cache sizes a call's
+time is its chain of latencies, so every block issues all its loads up
+front and both products run on the tensor cores (mma.sync).
 
 ``flash_decode_plain`` computes the same function in plain torch, as
 ``repro.models.attention.decode_attention`` does: fp32 scores and
 softmax, p cast to the cache dtype, fp32 accumulation.  The CPU path and
 the on-card comparison use it; nothing on the CUDA main path does.  The
-kernel keeps p in fp32 as the TPU kernel does, so the two differ by the
-bf16 rounding of p only.
+kernel also feeds p to the tensor cores in bf16, so the two differ by
+the order of sums only (and both differ from the TPU kernel, which keeps
+p in fp32, by the bf16 rounding of p).
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128)  # the head dims the kernel is built for
                        # (launch<64> and launch<128>)
 MAX_GROUP = 8          # q heads per kv head the kernel holds (kMaxG)
-TILE = 64              # keys per tile (kBK)
+MAX_SPLITS = 8         # splits per (batch, kv head): one portable cluster
+MIN_KEYS = 64          # keys per split at least: one 16-key step a warp
 
 
 def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -61,14 +63,21 @@ def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
 
 def plan_splits(batch: int, n_kv_heads: int, length: int, n_sms: int
                 ) -> tuple:
-    """(n_splits, keys_per_split): enough splits that batch * n_kv_heads *
-    n_splits covers the ``n_sms`` SMs, each split a whole number of
-    tiles, and no split empty."""
-    n_tiles = max(1, -(-length // TILE))
-    want = max(1, -(-n_sms // (batch * n_kv_heads)))
-    tiles_per_split = max(1, n_tiles // want)
-    n_splits = -(-n_tiles // tiles_per_split)
-    return n_splits, tiles_per_split * TILE
+    """(n_splits, keys_per_split): split [0, length) into ranges of any
+    number of keys, none empty.  The split count is the largest power of
+    two up to ``MAX_SPLITS`` (one portable cluster) that keeps the grid,
+    batch * n_kv_heads * splits blocks, within one block per SM of the
+    ``n_sms`` and each split at about ``MIN_KEYS`` keys or more.  At the
+    serving shapes that is 8 splits for qwen2 (64 blocks) and 4 for hymba
+    (80 blocks; 8 would be 160), the fastest of 1-8 in ``chip_smoke``'s
+    split sweep on an H100 (``PERF.md``)."""
+    n_keys = -(-length // MIN_KEYS)
+    want = 1
+    while (2 * want <= min(MAX_SPLITS, n_keys)
+           and 2 * want * batch * n_kv_heads <= n_sms):
+        want *= 2
+    per = -(-length // want)
+    return -(-length // per), per
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,7 +89,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("decode_attention")
     fn = lib.flash_decode_fwd_bf16
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -88,8 +97,8 @@ def _lib() -> ctypes.CDLL:
 
 def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, length: int) -> torch.Tensor:
-    """Launch the split and combine kernels on the current stream.  Takes
-    a bf16 CUDA q (B,H,D) and contiguous bf16 CUDA caches (B,Smax,Hkv,D),
+    """Launch the kernel (one launch) on the current stream.  Takes a
+    bf16 CUDA q (B,H,D) and contiguous bf16 CUDA caches (B,Smax,Hkv,D),
     D in ``HEAD_DIMS``, H/Hkv <= ``MAX_GROUP`` and 1 <= length <= Smax;
     raises on anything else."""
     B, H, D = q.shape
@@ -113,18 +122,11 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     n_splits, keys_per_split = plan_splits(B, Hkv, length,
                                            _sm_count(q.device))
     out = torch.empty_like(q)
-    # one fp32 scratch buffer, sliced into partial acc, m and l
-    n = B * H * n_splits
-    scratch = torch.empty(n * (D + 2), dtype=torch.float32, device=q.device)
-    part_acc = scratch[:n * D]
-    part_m = scratch[n * D:n * (D + 1)]
-    part_l = scratch[n * (D + 1):]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _lib().flash_decode_fwd_bf16(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-            part_acc.data_ptr(), B, H, Hkv, Smax, D, length, n_splits,
+            out.data_ptr(), B, H, Hkv, Smax, D, length, n_splits,
             keys_per_split, stream)
     build.check(err, "flash_decode_fwd_bf16")
     return out

@@ -4,16 +4,19 @@ Replaces the TPU kernel ``repro/kernels/flash_attention.py::
 _flash_fwd_kernel`` (wrapper ``flash_attention_fwd``), which walks kv
 blocks on a sequential grid axis carrying fp32 (m, l, acc) in VMEM.
 
-The Hopper kernel (``csrc/flash_attention.cu``) gives one thread block to
-each (batch, q head, 64-row q tile) and loops over kv tiles inside the
-block, since blocks on the H100 run in parallel in no order.  Both
-products run on the tensor cores (mma.sync bf16, fp32 accumulate) with
-the online softmax in registers.  What bounds it: about 4*B*H*S^2*D/2
-causal FLOPs against the q+k+v+o bytes; at the serving prompt of 512 the
-two bounds are close (bytes slightly ahead), and FLOPs take over as S
-grows.  The design keeps everything between the two products out of
-device memory and visits only the kv tiles inside the causal (and
-window) bound.
+The Hopper kernel (``csrc/flash_attention.cu``) gives one CTA to each
+(batch, q head, 64-row q tile), heaviest first, and loops over kv tiles
+inside it, since blocks on the H100 run in parallel in no order.  It is
+warp-specialised: a producer warp keeps TMA loads of the K and V tiles in
+flight through a ring of shared-memory stages guarded by mbarriers, and
+one consumer warpgroup runs both products on ``wgmma`` (bf16, fp32
+accumulate) with the online softmax in registers.  What bounds it: about
+4*B*H*S^2*D/2 causal FLOPs against the q+k+v+o bytes; at the serving
+prompt of 512 the two bounds are close (bytes slightly ahead), and FLOPs
+take over as S grows or under a window.  The design keeps everything
+between the two products out of device memory, overlaps loads with the
+math, and loads only the kv tiles inside the causal (and window) bound.
+The wrapper encodes the three TMA descriptors on the host per call.
 
 ``flash_attention_plain`` computes the same function in plain torch (a
 materialized masked softmax in fp32).  The CPU path and the on-card

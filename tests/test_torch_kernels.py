@@ -173,16 +173,32 @@ def test_decode_attention_is_the_plain_version():
 
 
 @pytest.mark.parametrize("B,Hkv,length", [
-    (4, 2, 1), (4, 2, 544), (4, 2, 4096), (1, 1, 100_000), (64, 8, 3)])
+    (4, 2, 1), (4, 2, 544), (4, 2, 4096), (1, 1, 100_000), (64, 8, 3),
+    (4, 2, 528), (4, 2, 241), (4, 5, 1024), (4, 5, 47), (2, 2, 300)])
 def test_plan_splits_cover_length(B, Hkv, length):
-    """Splits are whole tiles, none is empty, together they cover
-    [0, length), and they fill an H100's 132 SMs where the cache has
-    enough tiles."""
+    """Splits are ranges of keys, none is empty, together they cover
+    [0, length), one (batch, kv head) never needs more than one portable
+    cluster, and the grid fills an H100's 132 SMs as far as the keys and
+    the cluster cap allow: at most one block per SM, and twice the splits
+    would pass 132 blocks, the cap or about ``MIN_KEYS`` keys a split."""
     n, per = fd.plan_splits(B, Hkv, length, 132)
-    assert per % fd.TILE == 0 and n >= 1
+    assert 1 <= n <= fd.MAX_SPLITS and per >= 1
     assert (n - 1) * per < length <= n * per
-    n_tiles = -(-length // fd.TILE)
-    assert B * Hkv * n >= min(132, B * Hkv * n_tiles)
+    assert n == 1 or B * Hkv * n <= 132
+    assert (2 * n > min(fd.MAX_SPLITS, -(-length // fd.MIN_KEYS))
+            or 2 * B * Hkv * n > 132)
+
+
+@pytest.mark.parametrize("B,Hkv,length,want", [
+    (4, 2, 528, (8, 66)),      # qwen2 decode, mid-generation
+    (4, 5, 1024, (4, 256))])   # hymba decode over the full ring
+def test_plan_splits_at_serving_shapes(B, Hkv, length, want):
+    """At both serving paths' decode shapes the planner takes the split
+    count that ran fastest of 1-8 on an H100 in ``chip_smoke``'s split
+    sweep: 8 splits of 66 keys at qwen2's (64 blocks) and 4 of 256 at
+    hymba's (80 blocks, where 8 would be 160); the tile planner it
+    replaced gave 9 splits of one 64-key tile at qwen2's."""
+    assert fd.plan_splits(B, Hkv, length, 132) == want
 
 
 def test_wrappers_refuse_grad_on_cuda_only():
