@@ -16,6 +16,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    (ragged tiles and splits, small windows, q_offset, G = 1 and 8,
    peaked scores); every decode call is repeated and must be bitwise
    equal, and must run exactly one device kernel under torch.profiler;
+   every SSD call likewise, with its three device kernels (chunk state,
+   state pass, chunk output), at 10 cases including a partial group of
+   heads, 25 chunks with a ragged tail and unpadded X rows;
 4. serve qwen2-1.5b and then hymba-1.5b at full width and depth with
    seeded random weights through ``repro_torch.launch.serve.serve`` under
    the port's profiler, with every kernel launch counter set to 0 just
@@ -30,8 +33,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    library call computing the same function where there is one (a
    yardstick the port never calls), beside the least time the card could
    take for the same work, and the decode kernel at every split count the
-   planner could choose; break a serving step's time down by device
-   kernel.
+   planner could choose, and the SSD scan's device time by step; break a
+   serving step's time down by device kernel.
 
 The line before the last is a JSON object with one entry per kernel and
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -57,6 +60,9 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 TOL = dict(rtol=2e-2, atol=2e-2)
 STATE_TOL = dict(rtol=1e-2, atol=1e-2)   # SSD final state, tests/test_kernels.py
 ROW_TOL = 2e-2   # per row: max abs error over max |reference|
+SSM_STEPS = 3    # device kernels per SSD scan: state, state pass, output
+PORT_KERNEL = re.compile(
+    r"flash_fwd_kernel|flash_decode_kernel|ssd_\w+_kernel")
 B, N_REQUESTS, GEN_LEN = 4, 8, 32
 # each serving path: its prompt, and the 2-layer CPU check's prompt and
 # window (hymba's reduced so that the ring wraps and the CPU side stays
@@ -239,7 +245,13 @@ def check_kernels() -> tuple:
              fd.flash_decode_plain(q, kc, vc, 100))
     # SSD scan (B, S, nh, hd, st, chunk, with h0, decay): hymba's main path
     # with and without h0, the JAX sweep (tests/test_kernels.py:93-97), a
-    # ragged S, and a strong decay whose unmasked exp would overflow
+    # ragged S, a strong decay whose unmasked exp would overflow, nh = 7
+    # (not a multiple of the heads per block), 25 chunks with a ragged tail
+    # of 40, and chunks of 225 at hd 120, st 50 (unpadded X rows in shared
+    # memory, B/C rows not 16-byte aligned).  Every call is repeated and must
+    # be bitwise equal; the launcher refuses a call whose plan's shared
+    # memory is not where its kernels' carve-up ends, so every case also
+    # holds the plan against the kernels.
     for b, s, nh, hd, st, chunk, with_h0, decay in [
             (B, 1536, 25, 64, 16, 64, False, None),
             (B, 1536, 25, 64, 16, 64, True, None),
@@ -247,17 +259,46 @@ def check_kernels() -> tuple:
             (2, 256, 4, 32, 16, 128, True, None),
             (1, 256, 1, 64, 32, 256, True, None),
             (2, 200, 3, 64, 16, 64, True, None),
-            (2, 256, 4, 64, 16, 64, True, -20.0)]:
+            (2, 256, 4, 64, 16, 64, True, -20.0),
+            (2, 256, 7, 64, 16, 64, True, None),
+            (1, 1576, 25, 64, 16, 64, True, None),
+            (1, 500, 2, 120, 50, 225, True, None)]:
         xv, ld, Bm, Cm, h0 = _ssm_inputs(gen, b, s, nh, hd, st, decay,
                                          with_h0)
         y, hf = ops.ssm_scan(xv, ld, Bm, Cm, h0, chunk)
+        y2, hf2 = ops.ssm_scan(xv, ld, Bm, Cm, h0, chunk)
         yp, hp = ss.ssm_scan_plain(xv, ld, Bm, Cm, h0, chunk=chunk)
         torch.cuda.synchronize()
+        case = (b, s, nh, hd, st, chunk, decay)
         if not (torch.isfinite(y).all() and torch.isfinite(hf).all()):
-            raise AssertionError(f"ssm_scan: non-finite output at "
-                                 f"{(b, s, nh, hd, st, chunk, decay)}")
+            raise AssertionError(f"ssm_scan: non-finite output at {case}")
+        if not (torch.equal(y, y2) and torch.equal(hf, hf2)):
+            raise AssertionError(f"ssm_scan not deterministic at {case}")
         note("ssm_scan", y, yp)
         _err(hf, hp, STATE_TOL, rows=False)
+    if 7 % ss.plan(2, 256, 7, 64, 16, 64).heads_per_block == 0:
+        raise AssertionError("ssm_scan: the nh = 7 case no longer leaves a "
+                             "partial group of heads")
+    # B whose rows are not 16-byte aligned is refused before any launch
+    xv, ld, Bm, Cm, h0 = _ssm_inputs(gen, 1, 64, 2, 64, 16)
+    Bm_off = torch.empty(Bm.numel() + 1, dtype=Bm.dtype,
+                         device=Bm.device)[1:].view(Bm.shape)
+    Bm_off.copy_(Bm)
+    try:
+        ops.ssm_scan(xv, ld, Bm_off, Cm, None, 64)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("ssm_scan took a B that is not 16-byte "
+                             "aligned")
+    # the SSD scan's three steps per call, at hymba's shape
+    xv, ld, Bm, Cm, h0 = _ssm_inputs(gen, B, 1536, 25, 64, 16)
+    distinct, per_call = device_kernels(
+        lambda: ops.ssm_scan(xv, ld, Bm, Cm, None, 64))
+    if distinct != SSM_STEPS or per_call > SSM_STEPS:
+        raise AssertionError(f"ssm_scan ran {distinct} distinct device "
+                             f"kernels, {per_call} per call; want "
+                             f"{SSM_STEPS}")
     # one device kernel per decode call, at both paths' shapes
     for h, hkv, d, smax in ((12, 2, 128, 544), (25, 5, 64, 1024)):
         q = _randn((B, h, d), gen, 0.5)
@@ -296,10 +337,11 @@ def device_kernels(fn, iters: int = 5, attempts: int = 3) -> tuple:
     raise RuntimeError("torch.profiler recorded no device kernel")
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Device time of one call (ms): the CUDA kernels' time under
-    torch.profiler over ``iters`` calls after a warm-up, divided by
-    ``iters``.  Host overhead between launches is not counted."""
+def device_ms_by_kernel(fn, iters: int = 20) -> dict:
+    """Device time of one call (ms) by device kernel name: each kernel's
+    time under torch.profiler over ``iters`` calls after a warm-up,
+    divided by ``iters``.  Host overhead between launches is not
+    counted."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -308,10 +350,16 @@ def device_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    if total_us <= 0:
+    out = {e.key: e.self_device_time_total / iters / 1e3
+           for e in prof.key_averages() if e.self_device_time_total > 0}
+    if not out:
         raise RuntimeError("torch.profiler recorded no device time")
-    return total_us / iters / 1e3
+    return out
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call (ms), all its device kernels together."""
+    return sum(device_ms_by_kernel(fn, iters).values())
 
 
 def call_ms(fn, iters: int = 20) -> float:
@@ -369,7 +417,8 @@ def time_kernels(cfg, prompt: int) -> tuple:
     prefill attention over the prompt, a decode step against the cache a
     mid-generation step sees, and the SSD scan of a prefill.  Returns
     ({kernel: times}, {split count: decode kernel device ms} over every
-    count up to ``MAX_SPLITS``, with the planner's own count)."""
+    count up to ``MAX_SPLITS``, with the planner's own count, {device
+    kernel: ms} of the SSD scan's steps, empty without a mamba layer)."""
     from repro_torch.configs.base import HYBRID, SWA
     from repro_torch.kernels import decode_attention as fd
     from repro_torch.kernels import flash_attention as fa
@@ -380,7 +429,7 @@ def time_kernels(cfg, prompt: int) -> tuple:
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     windowed = any(k in (SWA, HYBRID) for k in cfg.blocks)
     window = cfg.window if windowed else 0
-    res = {}
+    res, steps = {}, {}
     q = _randn((B, prompt, h, d), gen)
     k = _randn((B, prompt, hkv, d), gen)
     v = _randn((B, prompt, hkv, d), gen)
@@ -443,7 +492,9 @@ def time_kernels(cfg, prompt: int) -> tuple:
                    plain_ms=lambda: ss.ssm_scan_plain(xv, ld, Bm, Cm,
                                                       chunk=chunk))
         res["ssm_scan"] = _timed(fns, *_bound(flops, nbytes))
-    return res, dict(planner=list(plan), device_ms=splits)
+        steps = {(PORT_KERNEL.search(k) or re.search(".*", k)).group(0): v
+                 for k, v in device_ms_by_kernel(fns["ms"]).items()}
+    return res, dict(planner=list(plan), device_ms=splits), steps
 
 
 def _timed(fns: dict, bound_ms: float, bound_by: str) -> tuple:
@@ -573,10 +624,17 @@ def step_breakdown(cfg, params, prompt: int, n_decode: int = 8) -> dict:
         ka = [e for e in prof.key_averages() if e.self_device_time_total > 0]
         busy_ms = sum(e.self_device_time_total for e in ka) / 1e3 / n
         top = sorted(ka, key=lambda e: -e.self_device_time_total)[:5]
+        port = {}      # the port's own kernels, summed by name
+        for e in ka:
+            m = PORT_KERNEL.search(e.key)
+            if m:
+                port[m.group(0)] = (port.get(m.group(0), 0.0)
+                                    + e.self_device_time_total / 1e3 / n)
         out[phase] = dict(
             wall_ms=wall_ms, device_busy_ms=busy_ms,
             idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
             kernels_per_step=sum(e.count for e in ka) / n,
+            port_kernels_ms=port,
             top_kernels=[(e.key[:48], e.self_device_time_total / 1e3 / n,
                           e.count // n) for e in top])
     return out
@@ -662,10 +720,12 @@ def run_path(name: str) -> dict:
     check_replay(cfg, params, srv["tokens"], prompt)
     print(f"replay {name}: every batch reproduces serve's tokens",
           flush=True)
-    times, splits = time_kernels(cfg, prompt)
+    times, splits, steps = time_kernels(cfg, prompt)
     for kname, (t, calls) in times.items():
+        by_step = (f"; device ms by step {json.dumps(steps)}"
+                   if kname == "ssm_scan" else "")
         print(f"{name} {kname}: device {json.dumps(t)}; back-to-back call "
-              f"{json.dumps(calls)}", flush=True)
+              f"{json.dumps(calls)}{by_step}", flush=True)
     print(f"{name} flash_decode by split count: {json.dumps(splits)}",
           flush=True)
     if "ssm_scan" in times:

@@ -184,3 +184,215 @@ def test_ssm_params_keep_fp32_leaves():
     for k, v in p.items():
         assert tuple(v.shape) == (3,) + jp[k].shape, k
         assert str(v.dtype).split(".")[-1] == jp[k].dtype.name, k
+
+
+# ---- the Hopper kernel's arithmetic, emulated on the CPU ----------------
+
+def _bf16(t):
+    """Round fp32 values to bf16 and back: an mma.sync operand."""
+    return t.to(torch.bfloat16).float()
+
+
+def _bf16_split(t):
+    """fp32 values as the sum of two bf16 operands, hi + lo."""
+    hi = _bf16(t)
+    return hi + _bf16(t - hi)
+
+
+def emulate_kernel(xv, ld, Bm, Cm, h0=None, chunk=64, state=_bf16_split):
+    """csrc/ssm_scan.cu's three steps in plain fp32 torch, each operand
+    rounded exactly where the kernel rounds it: B * w to bf16 (step 1),
+    G = L * C B^T to bf16 and the entering state to bf16 hi + lo (step 3;
+    ``state`` replaces that rounding).  Chunks of min(chunk, S) with the
+    ragged tail zero-filled and logdecay 0 there, as the kernel cuts them.
+    Returns (y bf16, h_final fp32)."""
+    B, S, nh, hd = xv.shape
+    st = Bm.shape[-1]
+    c = min(chunk, S)
+    n = -(-S // c)
+    pad = n * c - S
+    x = torch.nn.functional.pad(xv.float(), (0, 0, 0, 0, 0, pad))
+    x = x.reshape(B, n, c, nh, hd)
+    lc = torch.nn.functional.pad(ld.float(), (0, 0, 0, pad))
+    Bc = torch.nn.functional.pad(Bm.float(), (0, 0, 0, pad))
+    Cc = torch.nn.functional.pad(Cm.float(), (0, 0, 0, pad))
+    Bc, Cc = Bc.reshape(B, n, c, st), Cc.reshape(B, n, c, st)
+    cum = torch.cumsum(lc.reshape(B, n, c, nh), dim=2)
+    total = cum[:, :, -1]                                  # (B,n,nh)
+    # step 1: S_i = X^T bf16(B * exp(total - cum))
+    w = torch.exp(total[:, :, None] - cum)                 # (B,n,c,nh)
+    bw = _bf16(Bc[:, :, :, None, :] * w[..., None])        # (B,n,c,nh,st)
+    s_i = torch.einsum("bnchd,bnchs->bnhds", x, bw)
+    # step 2: fp32 recurrence; the state entering each chunk
+    h = torch.zeros((B, nh, hd, st)) if h0 is None else h0.float()
+    enter = []
+    for i in range(n):
+        enter.append(h)
+        h = torch.exp(total[:, i])[:, :, None, None] * h + s_i[:, i]
+    # step 3: y = bf16(L * C B^T) X + exp(cum) * (C state(h)^T)
+    cb = torch.einsum("bncs,bnks->bnck", Cc, Bc)           # exact
+    dec = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (B,n,t,tau,nh)
+    tri = torch.ones((c, c), dtype=torch.bool).tril()[:, :, None]
+    g = torch.where(tri, torch.exp(torch.where(tri, dec, 0.0)), 0.0)
+    g = _bf16(g * cb[..., None])
+    y = torch.einsum("bntkh,bnkhd->bnthd", g, x)
+    hin = state(torch.stack(enter, 1))                     # (B,n,nh,hd,st)
+    y = y + torch.einsum("bncs,bnhds->bnchd", Cc, hin) \
+        * torch.exp(cum)[..., None]
+    y = y.reshape(B, n * c, nh, hd)[:, :S]
+    return y.to(torch.bfloat16), h
+
+
+def row_ratio(t, j):
+    """Largest per-row max abs error over that row's largest |reference|,
+    the on-card check's second test (chip_smoke.ROW_TOL)."""
+    want = torch.from_numpy(np.asarray(j, np.float32))
+    err = (t.float() - want).abs().amax(-1)
+    return float((err / want.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+# (B, S, nh, chunk, decay): several chunks of the serving shape's hd 64,
+# st 16, chunk 64; a ragged S; a strong decay
+KERNEL_CASES = [(1, 256, 3, 64, None), (2, 200, 2, 64, None),
+                (1, 256, 2, 64, -20.0), (1, 100, 2, 256, None)]
+
+
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("B,S,nh,chunk,decay", KERNEL_CASES)
+def test_ssm_kernel_rounding_holds_tolerance(B, S, nh, chunk, decay,
+                                             with_h0):
+    """The kernel's bf16 operands (emulated) against the JAX package's
+    sequential oracle, at the JAX kernel tests' unchanged bf16 tolerances:
+    y at rtol = atol = 2e-2 and each row within 2e-2 of its largest
+    value, h_final at 1e-2."""
+    j, t = scan_inputs(10 + S, B, S, nh, 64, 16, "bfloat16", decay)
+    jh0, th0 = (j["h0"], t["h0"]) if with_h0 else (None, None)
+    y, h = emulate_kernel(t["xv"], t["ld"], t["Bm"], t["Cm"], th0, chunk)
+    yr, hr = jref.ssm_scan_ref(j["xv"], j["ld"], j["Bm"], j["Cm"], jh0)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
+    close(y, yr, **y_tol("bfloat16"))
+    assert row_ratio(y, yr) <= 2e-2
+    close(h, hr, **h_tol("bfloat16"))
+
+
+def test_ssm_kernel_state_needs_the_split():
+    """Why the kernel splits the entering state into bf16 hi + lo: on a
+    serving-length prompt (24 chunks of 64, 25 heads) rounding it to bf16
+    alone puts a row's error above 2e-2 of its largest value; the split
+    holds it at the rounding of y itself."""
+    _, t = scan_inputs(101, 2, 1536, 25, 64, 16, "bfloat16")
+    yp, _ = ss.ssm_scan_plain(t["xv"], t["ld"], t["Bm"], t["Cm"], t["h0"],
+                              chunk=64)
+    want = yp.float().numpy()
+    y, _ = emulate_kernel(t["xv"], t["ld"], t["Bm"], t["Cm"], t["h0"], 64)
+    assert row_ratio(y, want) <= 1e-2
+    y, _ = emulate_kernel(t["xv"], t["ld"], t["Bm"], t["Cm"], t["h0"], 64,
+                          state=_bf16)
+    assert row_ratio(y, want) > 2e-2
+
+
+def test_ssm_kernel_emulation_rounds():
+    """The emulation does round: against the plain fp32 version on the
+    same inputs it differs, and by no more than bf16 operands explain."""
+    _, t = scan_inputs(20, 1, 128, 2, 64, 16, "bfloat16")
+    y, h = emulate_kernel(t["xv"], t["ld"], t["Bm"], t["Cm"], t["h0"], 64)
+    yp, hp = ss.ssm_scan_plain(t["xv"].float(), t["ld"], t["Bm"].float(),
+                               t["Cm"].float(), t["h0"], chunk=64)
+    assert not torch.equal(h, hp)
+    scale = float(hp.abs().max())
+    assert 0 < float((h - hp).abs().max()) <= 2 ** -8 * scale
+    assert float((y.float() - yp).abs().max()) <= 2 ** -6 * float(
+        yp.abs().max())
+
+
+# ---- the launch plan the C launcher mirrors ------------------------------
+
+SERVING = (4, 1536, 25, 64, 16, 64)     # chip_smoke.PATHS, serve's chunk
+MAX_HD = ss.MAX_HEAD_DIM
+
+
+@pytest.mark.parametrize("nh", [1, 3, 7, 25])
+@pytest.mark.parametrize("S,chunk,n_chunks", [
+    (300, 64, 5),       # 4 x 64 + a ragged 44
+    (1536, 64, 24),     # the serving prompt
+    (1576, 64, 25),     # 24 x 64 + a ragged 40
+    (50, 64, 1),        # S below the chunk: one chunk of S
+    (7, 1, 7),          # chunks of one position
+    (200, 256, 1)])
+def test_ssm_plan_covers_every_head_once(nh, S, chunk, n_chunks):
+    p = ss.plan(2, S, nh, 64, 16, chunk)
+    k = p.heads_per_block
+    assert k == min(ss.HEADS_PER_BLOCK, nh)
+    # the kernels' cut: group g holds heads [g k, min(g k + k, nh))
+    groups = [range(g * k, min(g * k + k, nh)) for g in range(p.n_groups)]
+    assert [h for grp in groups for h in grp] == list(range(nh))
+    assert all(len(grp) >= 1 for grp in groups)
+    # and chunk i holds positions [i c, min(i c + c, S))
+    assert p.chunk == min(chunk, S) and p.n_chunks == n_chunks
+    assert (p.n_chunks - 1) * p.chunk < S <= p.n_chunks * p.chunk
+    assert p.blocks == 2 * p.n_chunks * p.n_groups
+
+
+def test_ssm_plan_serving_shape():
+    p = ss.plan(*SERVING)
+    assert (p.chunk, p.n_chunks) == (64, 24)
+    assert p.heads_per_block == ss.HEADS_PER_BLOCK
+    assert p.n_groups * p.heads_per_block >= 25
+    assert p.blocks == 4 * 24 * p.n_groups
+    assert p.workspace == (4, 24, 25, 64, 16)
+    assert p.decay == (4, 24, 25)
+    assert p.pass_blocks * ss.PASS_THREADS >= 4 * 25 * 64 * 16
+    # 9.8 MB of fp32 chunk states
+    assert int(np.prod(p.workspace)) * 4 == 9_830_400
+
+
+@pytest.mark.parametrize("B,S,nh,hd,st,chunk",
+                         SSM_SWEEP + [SERVING, (1, 256, 1, 128, 32, 256),
+                                      (2, 4096, 8, 128, 32, 256)])
+def test_ssm_plan_shared_memory_fits(B, S, nh, hd, st, chunk):
+    p = ss.plan(B, S, nh, hd, st, chunk)
+    assert 0 < p.smem_state <= ss.MAX_SMEM
+    assert 0 < p.smem_out <= ss.MAX_SMEM
+    assert p.smem_out == ss.smem_bytes(p.chunk, hd, st, p.heads_per_block, 3)
+    assert p.smem_state == ss.smem_bytes(p.chunk, hd, st,
+                                         p.heads_per_block, 1)
+    # X rows are 16-byte aligned for cp.async, padded where that fits
+    for ldx in (p.ldx_state, p.ldx_out):
+        assert ldx % 8 == 0 and ldx - (-(-hd // 16) * 16) in (0, 8)
+
+
+def test_ssm_plan_shrinks_the_group_to_fit():
+    """At the largest shapes the group of heads shrinks until shared
+    memory holds it; a shape one head does not fit in raises."""
+    p = ss.plan(1, 256, 8, 128, 32, 256)
+    assert p.heads_per_block < ss.HEADS_PER_BLOCK
+    assert ss.smem_bytes(256, 128, 32, p.heads_per_block + 1, 3) \
+        > ss.MAX_SMEM
+    assert ss.plan(1, 128, 8, 128, 32, 128).heads_per_block \
+        == ss.HEADS_PER_BLOCK
+    with pytest.raises(ValueError, match="shared memory"):
+        ss.plan(1, 256, 1, 128, 64, 256)
+
+
+def test_ssm_plan_takes_every_shape_the_one_block_kernel_took():
+    """The kernel this one replaced kept a chunk's X, B, C, cum, w and the
+    state in fp32 shared memory, 4 (c hd + 2 c (st + 1) + 2 c + st hd)
+    bytes; every shape that fitted there fits one head per block here."""
+    for c in (1, 15, 16, 63, 64, 100, 128, 200, 256):
+        for hd in range(8, MAX_HD + 1, 8):
+            for st in range(1, ss.MAX_STATE + 1):
+                if 4 * (c * hd + 2 * c * (st + 1) + 2 * c + st * hd) \
+                        > ss.MAX_SMEM:
+                    continue
+                p = ss.plan(1, c, 1, hd, st, c)
+                assert p.heads_per_block == 1, (c, hd, st)
+
+
+@pytest.mark.parametrize("bad", [dict(hd=12), dict(hd=136), dict(st=65),
+                                 dict(chunk=0), dict(chunk=257),
+                                 dict(st=0)])
+def test_ssm_plan_refuses_what_the_kernel_does_not_take(bad):
+    kw = dict(hd=64, st=16, chunk=64)
+    kw.update(bad)
+    with pytest.raises(ValueError):
+        ss.plan(1, 128, 4, kw["hd"], kw["st"], kw["chunk"])
