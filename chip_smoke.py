@@ -8,6 +8,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 2. build every CUDA kernel of the serving paths from ``src/repro_torch/csrc``
    (one nvcc per source, in parallel) and print the build seconds and each
    kernel's registers, shared memory and spills as ptxas reports them;
+   ground the kernel structures recovered from the CUDA source in the
+   binaries: every dot_general leaf's line has a SASS instruction in the
+   built library's line table (``cuobjdump -xelf all``, ``nvdisasm -gi``);
 3. hold each kernel, through the wrapper the main paths call, against its
    plain torch version on the card, in bf16, at the tolerance of the JAX
    package's kernel tests (rtol = atol = 2e-2; the SSD scan's final state
@@ -19,22 +22,30 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    every SSD call likewise, with its three device kernels (chunk state,
    state pass, chunk output), at 10 cases including a partial group of
    heads, 25 chunks with a ragged tail and unpadded X rows;
-4. serve qwen2-1.5b and then hymba-1.5b at full width and depth with
+4. time each kernel at each path's shapes, its plain version and one
+   library call computing the same function where there is one (a
+   yardstick the port never calls), beside the least time the card could
+   take for the same work (the kernel modules' own ``work`` counts), and
+   the decode kernel at every split count the planner could choose, and
+   the SSD scan's device time by step; break a serving step's time down
+   by device kernel.  All of this runs under torch.profiler, for both
+   models, before the first profiled serve (see ``time_path``);
+5. serve qwen2-1.5b and then hymba-1.5b at full width and depth with
    seeded random weights through ``repro_torch.launch.serve.serve`` under
    the port's profiler, with every kernel launch counter set to 0 just
    before each and read just after; check token shape, launch counts and
    profile files, and read the prefill/decode latencies back from the
-   profile;
-5. check the output of each: replay every request batch outside ``serve``
+   profile; aggregate the profiles with the port's ``aggregate`` into a
+   database under ``chiprun_out/chip_smoke_db``, check PC samples under
+   both step placeholders and samples that reach a dot_general leaf of
+   every kernel's own .cu file, and print the top-down view; serve the
+   same requests without a profile directory before and after, for the
+   profiler's overhead; serve 2 layers with hardware counters on and
+   check every counter column;
+6. check the output of each: replay every request batch outside ``serve``
    (same tokens, every logit finite), and hold a 2-layer full-width model
    on the card against the same bf16 weights run on the CPU through the
-   plain versions;
-6. time each kernel at each path's shapes, its plain version and one
-   library call computing the same function where there is one (a
-   yardstick the port never calls), beside the least time the card could
-   take for the same work, and the decode kernel at every split count the
-   planner could choose, and the SSD scan's device time by step; break a
-   serving step's time down by device kernel.
+   plain versions.
 
 The line before the last is a JSON object with one entry per kernel and
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -55,8 +66,6 @@ import torch
 import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 TOL = dict(rtol=2e-2, atol=2e-2)
 STATE_TOL = dict(rtol=1e-2, atol=1e-2)   # SSD final state, tests/test_kernels.py
 ROW_TOL = 2e-2   # per row: max abs error over max |reference|
@@ -71,6 +80,8 @@ B, N_REQUESTS, GEN_LEN = 4, 8, 32
 PATHS = {"qwen2-1.5b": dict(prompt=512, cpu_prompt=64, cpu_window=0),
          "hymba-1.5b": dict(prompt=1536, cpu_prompt=192, cpu_window=128)}
 KERNELS = ("flash_attention", "flash_decode", "ssm_scan")
+COUNTERS = ("flops", "mxu_flops", "hbm_bytes", "inst_executed", "active_ns",
+            "elapsed_ns")
 SOURCES = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:36"),
            "flash_decode": ("src/repro_torch/csrc/decode_attention.cu",
@@ -337,24 +348,31 @@ def device_kernels(fn, iters: int = 5, attempts: int = 3) -> tuple:
     raise RuntimeError("torch.profiler recorded no device kernel")
 
 
-def device_ms_by_kernel(fn, iters: int = 20) -> dict:
+def device_ms_by_kernel(fn, iters: int = 20, attempts: int = 5) -> dict:
     """Device time of one call (ms) by device kernel name: each kernel's
     time under torch.profiler over ``iters`` calls after a warm-up,
     divided by ``iters``.  Host overhead between launches is not
-    counted."""
+    counted.  A window in which a kernel's launches are not a whole
+    multiple of ``iters`` dropped records (torch.profiler does, on an
+    "NVIDIA H100 80GB HBM3" at 700 W, once the port's profiler has drawn
+    PC samples in the process: see ``time_path``) and is taken again."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {e.key: e.self_device_time_total / iters / 1e3
-           for e in prof.key_averages() if e.self_device_time_total > 0}
-    if not out:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return out
+    seen = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ka = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        seen.append({e.key: e.count for e in ka})
+        if ka and all(e.count % iters == 0 for e in ka):
+            return {e.key: e.self_device_time_total / iters / 1e3
+                    for e in ka}
+    raise RuntimeError(f"torch.profiler dropped device records in every "
+                       f"window of {iters} calls: {seen}")
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -379,16 +397,12 @@ def call_ms(fn, iters: int = 20) -> float:
 
 
 def _bound(flops: float, nbytes: float) -> tuple:
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    """(least ms, "operations" or "bytes") of a call's work at the H100
+    SXM's dense bf16 peak and HBM3 rate (NVIDIA's data sheet)."""
+    from repro_torch.core.sampling import HBM_BW, PEAK_FLOPS
+    t_ops = flops / PEAK_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BW * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def _pairs(s: int, window: int) -> int:
-    """Allowed (q, k) pairs of causal attention over s positions, each row
-    seeing at most ``window`` keys (0: no window)."""
-    w = window or s
-    return sum(min(i + 1, w) for i in range(s))
 
 
 def _decode_at(q, kc, vc, length: int, n_splits: int, keys_per_split: int):
@@ -434,8 +448,7 @@ def time_kernels(cfg, prompt: int) -> tuple:
     k = _randn((B, prompt, hkv, d), gen)
     v = _randn((B, prompt, hkv, d), gen)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    flops = 4.0 * B * h * _pairs(prompt, window) * d   # QK^T and PV
-    nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+    flops, nbytes = fa.work(B, prompt, h, hkv, d, window)
     if window:
         i = torch.arange(prompt, device="cuda")
         band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
@@ -459,8 +472,7 @@ def time_kernels(cfg, prompt: int) -> tuple:
     vc = _randn((B, smax, hkv, d), gen, 0.5)
     kl = kc[:, :length].transpose(1, 2)
     vl = vc[:, :length].transpose(1, 2)
-    flops = 4.0 * B * h * length * d
-    nbytes = 2.0 * (2 * qd.numel() + 2 * B * length * hkv * d)
+    flops, nbytes = fd.work(B, h, hkv, d, length)
     fns = dict(ms=lambda: ops.flash_decode(qd, kc, vc, length),
                plain_ms=lambda: fd.flash_decode_plain(qd, kc, vc, length),
                library_ms=lambda: F.scaled_dot_product_attention(
@@ -479,14 +491,7 @@ def time_kernels(cfg, prompt: int) -> tuple:
     if HYBRID in cfg.blocks:
         st, chunk = cfg.ssm_state, min(64, prompt)   # serve's ssm_chunk
         xv, ld, Bm, Cm, _ = _ssm_inputs(gen, B, prompt, h, d, st)
-        # per (batch, chunk): C B^T over the causal pairs, shared by the
-        # heads; per head: g X, the inter-chunk term and the state update
-        n_chunks = -(-prompt // chunk)
-        tri = chunk * (chunk + 1) / 2
-        flops = 2.0 * B * n_chunks * (tri * st + h * (tri * d + 2 * chunk
-                                                       * st * d))
-        nbytes = (2 * xv.numel() * 2 + ld.numel() * 4 + 2 * Bm.numel() * 2
-                  + B * h * d * st * 4)            # xv, y, ld, B, C, h
+        flops, nbytes = ss.work(B, prompt, h, d, st, chunk)
         # no single PyTorch call computes a selective scan: no yardstick
         fns = dict(ms=lambda: ops.ssm_scan(xv, ld, Bm, Cm, None, chunk),
                    plain_ms=lambda: ss.ssm_scan_plain(xv, ld, Bm, Cm,
@@ -495,6 +500,64 @@ def time_kernels(cfg, prompt: int) -> tuple:
         steps = {(PORT_KERNEL.search(k) or re.search(".*", k)).group(0): v
                  for k, v in device_ms_by_kernel(fns["ms"]).items()}
     return res, dict(planner=list(plan), device_ms=splits), steps
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host time of one call (µs): ``n`` calls back to back without a
+    synchronise, after a warm-up (what the dispatching thread spends)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def wrapper_host_us(cfg, prompt: int) -> dict:
+    """Each wrapper's host time per call at the path's shapes, through
+    the custom op (``ops.*``, as the main path calls it) and through the
+    launcher alone (``*_cuda``, what the wrapper called before the custom
+    ops), in turns: op, launcher, launcher, op."""
+    from repro_torch.configs.base import HYBRID, SWA
+    from repro_torch.kernels import decode_attention as fd
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as ss
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    window = cfg.window if any(k in (SWA, HYBRID) for k in cfg.blocks) \
+        else 0
+    q = _randn((B, prompt, h, d), gen)
+    k = _randn((B, prompt, hkv, d), gen)
+    if window:        # time_kernels' decode shapes: a full ring
+        smax = length = min(window, prompt)
+    else:
+        smax, length = prompt + GEN_LEN, prompt + GEN_LEN // 2
+    qd = _randn((B, h, d), gen)
+    kc = _randn((B, smax, hkv, d), gen)
+    pairs = {"flash_attention": (
+        lambda: ops.flash_attention(q, k, k, window=window),
+        lambda: fa.flash_attention_cuda(q, k, k, window=window)),
+        "flash_decode": (
+        lambda: ops.flash_decode(qd, kc, kc, length),
+        lambda: fd.flash_decode_cuda(qd, kc, kc, length))}
+    if HYBRID in cfg.blocks:
+        xv, ld, Bm, Cm, _ = _ssm_inputs(gen, B, prompt, h, d, cfg.ssm_state)
+        chunk = min(64, prompt)
+        pairs["ssm_scan"] = (
+            lambda: ops.ssm_scan(xv, ld, Bm, Cm, None, chunk),
+            lambda: ss.ssm_scan_cuda(xv, ld, Bm, Cm, None, chunk=chunk))
+    out = {}
+    with torch.no_grad():
+        for name, (op, launcher) in pairs.items():
+            t = [host_us(op), host_us(launcher), host_us(launcher),
+                 host_us(op)]
+            out[name] = dict(op_us=[t[0], t[3]], launcher_us=[t[1], t[2]])
+    return out
 
 
 def _timed(fns: dict, bound_ms: float, bound_by: str) -> tuple:
@@ -523,6 +586,49 @@ def _profile_latencies(path: str) -> dict:
     return out
 
 
+def interior_samples(db) -> dict:
+    """PC samples (``gpu_inst/samples``) of an aggregated database by
+    dispatch placeholder: {step: {"samples": under the placeholder,
+    "kernels": {kernel: {"samples": of its interior leaves,
+    "dot_general": of its dot_general leaves, "dot_lines": the (file,
+    line) of each dot_general leaf that drew samples in the kernel's own
+    .cu file}}}}.  A kernel is the interior root right below a
+    ``custom-call`` op."""
+    col = db.stats["sum"][:, db.metric_id("gpu_inst/samples")]
+    out = {}
+    for g, fr in enumerate(db.frames):
+        if fr.kind == "placeholder" and fr.name.startswith("kernel:"):
+            step = out.setdefault(fr.name[len("kernel:"):],
+                                  {"samples": 0.0, "kernels": {}})
+            step["samples"] += float(col[g])
+    for g, fr in enumerate(db.frames):
+        if fr.kind != "gpu_op" or not fr.module.endswith(".cu") \
+                or col[g] <= 0:
+            continue
+        chain = [g]
+        while db.parents[chain[-1]] >= 0:
+            chain.append(int(db.parents[chain[-1]]))
+        root = step = None
+        for child, par in zip(chain, chain[1:]):
+            pf = db.frames[par]
+            if root is None and pf.kind == "gpu_op" \
+                    and pf.name.startswith("custom-call:"):
+                root = db.frames[child]
+            if pf.kind == "placeholder" and pf.name.startswith("kernel:"):
+                step = pf.name[len("kernel:"):]
+                break
+        if root is None or step is None:
+            continue
+        k = out[step]["kernels"].setdefault(root.name, {
+            "samples": 0.0, "dot_general": 0.0, "dot_lines": set()})
+        k["samples"] += float(col[g])
+        if fr.name == "dot_general":
+            k["dot_general"] += float(col[g])
+            if fr.module == root.module:
+                k["dot_lines"].add((fr.module, fr.line))
+    return out
+
+
 def _serve_opts(prompt: int):
     """The options ``serve`` builds by default for this prompt."""
     from repro_torch.models import transformer as T
@@ -531,6 +637,8 @@ def _serve_opts(prompt: int):
 
 
 def run_serve(cfg, params, prompt: int) -> dict:
+    """The main path: serve under the port's profiler, every kernel launch
+    counter set to 0 just before and read just after."""
     from repro_torch.configs.base import HYBRID
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
@@ -559,9 +667,172 @@ def run_serve(cfg, params, prompt: int) -> dict:
         raise AssertionError(f"profile files missing: {paths}")
     lat = _profile_latencies(paths["gpu_0"])
     step_s = sum(ms * n for ms, n in lat.values()) * 1e-3
-    return dict(tokens=toks, launches=launches, wall_s=wall,
+    return dict(tokens=toks, launches=launches, wall_s=wall, paths=paths,
                 prefill_ms=lat["prefill"][0], decode_ms=lat["decode_step"][0],
                 tok_per_s_in_steps=N_REQUESTS * GEN_LEN / step_s)
+
+
+def serve_wall(cfg, params, prompt: int) -> float:
+    """Wall seconds of the same serve as ``run_serve`` without a profile
+    directory (no profiler, no registration)."""
+    from repro_torch.launch.serve import serve
+    t0 = time.monotonic()
+    toks, paths = serve(cfg, n_requests=N_REQUESTS, batch=B,
+                        prompt_len=prompt, gen_len=GEN_LEN, profile_dir=None,
+                        device="cuda", params=params)
+    wall = time.monotonic() - t0
+    if paths is not None or tuple(toks.shape) != (N_REQUESTS, GEN_LEN):
+        raise AssertionError(f"serve without a profile: {paths}, "
+                             f"{tuple(toks.shape)}")
+    return wall
+
+
+def _database(paths: dict, out_dir: str):
+    """The port's canonical database of one serve's profiles and traces."""
+    from repro_torch.core.aggregate import aggregate
+    shutil.rmtree(out_dir, ignore_errors=True)
+    profiles = sorted(v for k, v in paths.items()
+                      if k.startswith(("cpu_", "gpu_")) and "trace" not in k)
+    traces = sorted(v for k, v in paths.items() if "trace" in k)
+    return aggregate(profiles, out_dir, trace_paths=traces)
+
+
+def check_profile(cfg, paths: dict) -> dict:
+    """Aggregate the main path's profiles with the port's ``aggregate``
+    into ``chiprun_out/chip_smoke_db/<model>`` and check them: PC samples
+    under both step placeholders, and under every kernel's custom-call
+    samples that reach a dot_general leaf of its own .cu file.  Prints
+    the top-down view.  Returns {step: samples, export seconds, ops,
+    kernels' samples}."""
+    from repro_torch.core import viewer
+    db = _database(paths, os.path.join(ROOT, "chiprun_out", "chip_smoke_db",
+                                       cfg.name))
+    got = interior_samples(db)
+    with open(paths["measurement"]) as f:
+        measurement = json.load(f)
+    structure = measurement["steps"]
+    want = {"prefill": {"flash_attention"}, "decode_step":
+            {"decode_attention"}}
+    if "hybrid" in cfg.blocks:
+        want["prefill"].add("ssm_scan")
+    out = {}
+    for step, kernels in want.items():
+        if got.get(step, {}).get("samples", 0) <= 0:
+            raise AssertionError(f"{cfg.name}: no gpu_inst/samples under "
+                                 f"kernel:{step}")
+        for kname in kernels:
+            k = got[step]["kernels"].get(kname)
+            if not k or k["dot_general"] <= 0 or not k["dot_lines"]:
+                raise AssertionError(f"{cfg.name} {step}: no sample of "
+                                     f"{kname} reached a dot_general leaf "
+                                     f"of {kname}.cu: {k}")
+        out[step] = dict(
+            samples=got[step]["samples"], ops=structure[step]["ops"],
+            custom_calls=structure[step]["custom_calls"],
+            export_s=structure[step]["seconds"],
+            kernels={kname: dict(samples=k["samples"],
+                                 dot_general=k["dot_general"],
+                                 dot_lines=sorted(k["dot_lines"]))
+                     for kname, k in got[step]["kernels"].items()})
+    out["profiler"] = measurement["profiler"]
+    print(viewer.top_down(db, "gpu_inst/samples", max_depth=8), flush=True)
+    return out
+
+
+def check_counters(cfg, prompt: int) -> None:
+    """A second, short serve (2 layers at full width, 4 requests of 4
+    tokens) with hardware counters on: every counter column non-zero at
+    both step placeholders.  Prints the counter table."""
+    from repro_torch.core import derived, viewer
+    from repro_torch.launch.serve import serve
+    small = dataclasses.replace(cfg, n_layers=2)
+    prof_dir = os.path.join(ROOT, "chiprun_out", "chip_smoke_counters",
+                            cfg.name)
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    _, paths = serve(small, n_requests=B, batch=B, prompt_len=prompt,
+                     gen_len=4, profile_dir=prof_dir, device="cuda",
+                     counters=COUNTERS)
+    db = _database(paths, prof_dir + "_db")
+    cols = derived.database_columns(db, "sum")
+    steps = [g for g, f in enumerate(db.frames) if f.kind == "placeholder"
+             and f.name in ("kernel:prefill", "kernel:decode_step")]
+    if len(steps) < 2:
+        raise AssertionError(f"counters: step placeholders {steps}")
+    for c in COUNTERS:
+        col = cols.get(f"gpu_counter/{c}")
+        if col is None or not all(col[g] > 0 for g in steps):
+            raise AssertionError(f"{cfg.name}: counter {c} missing or zero")
+    print(viewer.counter_table(db), flush=True)
+
+
+_SASS_LOC = re.compile(r'"([^"]+)",?\s*line\s*(\d+)')
+_SASS_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/")
+
+
+def sass_lines(lib: str, work_dir: str) -> set:
+    """(file name, line) of every source line with at least one SASS
+    instruction in the library's cubins: ``cuobjdump -xelf all`` extracts
+    them, ``nvdisasm -gi`` gives the line table, inlined call sites
+    included (the build passes ``-lineinfo``)."""
+    from repro_torch.kernels import build
+    bindir = os.path.dirname(build._nvcc())
+    shutil.rmtree(work_dir, ignore_errors=True)
+    os.makedirs(work_dir)
+    subprocess.run([os.path.join(bindir, "cuobjdump"), "-xelf", "all",
+                    os.path.abspath(lib)], cwd=work_dir, check=True,
+                   capture_output=True)
+    cubins = sorted(f for f in os.listdir(work_dir) if f.endswith(".cubin"))
+    if not cubins:
+        raise AssertionError(f"no cubin in {lib}")
+    out = set()
+    for cub in cubins:
+        out |= line_table(subprocess.run(
+            [os.path.join(bindir, "nvdisasm"), "-gi",
+             os.path.join(work_dir, cub)], check=True, capture_output=True,
+            text=True).stdout)
+    return out
+
+
+def line_table(sass: str) -> set:
+    """(file name, line) of every location that an instruction of
+    ``nvdisasm -gi`` output is attributed to.  An instruction's location
+    is the block of "//##" lines above it, one per inlining level ("File
+    a, line n inlined at b, line m"), up to the outermost call site."""
+    out, locs, fresh = set(), [], True
+    for line in sass.splitlines():
+        if "//##" in line:
+            if fresh:
+                locs, fresh = [], False
+            locs += _SASS_LOC.findall(line)
+        elif _SASS_INSN.search(line):
+            out.update((os.path.basename(f), int(n)) for f, n in locs)
+            fresh = True
+    return out
+
+
+def check_sass() -> dict:
+    """Ground the source-derived kernel structures in the binaries: at
+    both paths' shapes, every dot_general leaf's line has at least one
+    SASS instruction.  Returns {kernel: dot_general lines checked}."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build, kernel_structures
+    libs = build.build(["flash_attention", "decode_attention", "ssm_scan"])
+    tables = {name: sass_lines(str(path), os.path.join(
+        str(build.BUILD_DIR), "sass", name)) for name, path in libs.items()}
+    checked = {}
+    for name, spec in PATHS.items():
+        prompt = spec["prompt"]
+        for ks in kernel_structures(get_config(name), B, prompt,
+                                    prompt + GEN_LEN):
+            lib = ks.file[:-len(".cu")]
+            dots = {(lf.frames[-1].module, lf.line) for lf in ks.leaves
+                    if lf.frames[-1].name == "dot_general"}
+            missing = sorted(dots - tables[lib])
+            if not dots or missing:
+                raise AssertionError(f"{ks.name}: dot_general leaves "
+                                     f"without SASS: {missing or 'none'}")
+            checked.setdefault(ks.name, set()).update(dots)
+    return {k: sorted(v) for k, v in checked.items()}
 
 
 def check_replay(cfg, params, toks, prompt: int) -> None:
@@ -698,28 +969,26 @@ def _tree(tree, fn):
     return fn(tree)
 
 
-def run_path(name: str) -> dict:
-    """Serve one model, check its output, then time its kernels and break
-    its steps down (everything under torch.profiler comes after serve,
-    whose latencies it would otherwise inflate).  Returns the serve
-    result and the kernel times."""
+def init_params(name: str) -> dict:
+    """Seeded random weights of one model at full width and depth."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
-    cfg = get_config(name)
-    prompt = PATHS[name]["prompt"]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    params = T.init_params(gen, cfg)
-    srv = run_serve(cfg, params, prompt)
-    print(f"serve {name}: {N_REQUESTS} requests x {GEN_LEN} tokens, "
-          f"batch {B}, prompt {prompt}: wall {srv['wall_s']:.2f} s (incl. "
-          f"warm-up), prefill {srv['prefill_ms']:.3f} ms/batch, decode "
-          f"{srv['decode_ms']:.3f} ms/step, "
-          f"{srv['tok_per_s_in_steps']:.1f} tok/s over measured steps; "
-          f"launches {json.dumps(srv['launches'])}", flush=True)
-    check_replay(cfg, params, srv["tokens"], prompt)
-    print(f"replay {name}: every batch reproduces serve's tokens",
-          flush=True)
+    return T.init_params(gen, get_config(name))
+
+
+def time_path(name: str, params) -> dict:
+    """Time one model's kernels and break its steps down under
+    torch.profiler.  Runs before any of the port's profiled serves: once
+    the port's profiler has drawn PC samples in a process, torch.profiler
+    drops device records (on an "NVIDIA H100 80GB HBM3" at 700 W, 1 of
+    20 launches a window after a 2-layer serve, 4 after a full-depth one;
+    none after an export, a registration or a profiled serve that draws
+    no samples).  Returns the kernel times."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    prompt = PATHS[name]["prompt"]
     times, splits, steps = time_kernels(cfg, prompt)
     for kname, (t, calls) in times.items():
         by_step = (f"; device ms by step {json.dumps(steps)}"
@@ -733,6 +1002,40 @@ def run_path(name: str) -> dict:
               "a selective (SSD) scan", flush=True)
     print(f"{name} step breakdown: "
           f"{json.dumps(step_breakdown(cfg, params, prompt))}", flush=True)
+    return times
+
+
+def serve_path(name: str, params) -> dict:
+    """Serve one model under the port's profiler, check its output, its
+    profile and database, the profiler's overhead, the 2-layer CPU check
+    and a counters serve.  Frees ``params`` on the way.  Returns the
+    serve result."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    prompt = PATHS[name]["prompt"]
+    plain_s = [serve_wall(cfg, params, prompt)]
+    srv = run_serve(cfg, params, prompt)
+    plain_s.append(serve_wall(cfg, params, prompt))
+    print(f"serve {name}: {N_REQUESTS} requests x {GEN_LEN} tokens, "
+          f"batch {B}, prompt {prompt}: wall {srv['wall_s']:.2f} s (incl. "
+          f"warm-up), prefill {srv['prefill_ms']:.3f} ms/batch, decode "
+          f"{srv['decode_ms']:.3f} ms/step, "
+          f"{srv['tok_per_s_in_steps']:.1f} tok/s over measured steps; "
+          f"launches {json.dumps(srv['launches'])}", flush=True)
+    prof = check_profile(cfg, srv["paths"])
+    print(f"profile {name}: {json.dumps(prof)}", flush=True)
+    reg_s = sum(v["export_s"] for k, v in prof.items() if k != "profiler")
+    plain = sum(plain_s) / len(plain_s)
+    print(f"profiler overhead {name}: serve wall with a profile directory "
+          f"{srv['wall_s']:.3f} s (export and registration of both steps "
+          f"{reg_s:.3f} s), without {plain_s[0]:.3f} / {plain_s[1]:.3f} s; "
+          f"ratio {srv['wall_s'] / plain:.4f}, without the registration "
+          f"{(srv['wall_s'] - reg_s) / plain:.4f}", flush=True)
+    check_replay(cfg, params, srv["tokens"], prompt)
+    print(f"replay {name}: every batch reproduces serve's tokens",
+          flush=True)
+    print(f"{name} wrapper host us per call (custom op, launcher alone): "
+          f"{json.dumps(wrapper_host_us(cfg, prompt))}", flush=True)
     del params
     torch.cuda.empty_cache()
     cpu = PATHS[name]
@@ -740,7 +1043,10 @@ def run_path(name: str) -> dict:
     print(f"{name}: 2-layer full-width (prompt {cpu['cpu_prompt']}, window "
           f"{cpu['cpu_window']}) vs CPU bf16 plain: max abs logit err / max "
           f"abs logit {worst:.4f}", flush=True)
-    return dict(launches=srv["launches"], times=times)
+    check_counters(cfg, prompt)
+    print(f"{name}: counters on a 2-layer serve: every column non-zero",
+          flush=True)
+    return srv
 
 
 def main() -> int:
@@ -754,14 +1060,19 @@ def main() -> int:
     print(f"build_s: {seconds:.1f}", flush=True)
     for line in ptxas:
         print(f"ptxas {line}", flush=True)
+    sass = check_sass()
+    print(f"sass: every dot_general leaf's line has SASS instructions: "
+          f"{json.dumps(sass)}", flush=True)
     errs, ratios = check_kernels()
     print(f"kernel checks passed: max abs err {errs}, largest row "
           f"err / row max {ratios}", flush=True)
-    runs = {name: run_path(name) for name in PATHS}
+    params = {name: init_params(name) for name in PATHS}
+    times = {name: time_path(name, params[name]) for name in PATHS}
+    runs = {name: serve_path(name, params.pop(name)) for name in PATHS}
 
     kernels = []
     for path, run in runs.items():
-        for kname, (t, _) in run["times"].items():
+        for kname, (t, _) in times[path].items():
             kernels.append(dict(
                 name=kname, path=path, route="cuda",
                 source=SOURCES[kname][0], replaces=SOURCES[kname][1],

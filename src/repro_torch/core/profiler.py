@@ -3,9 +3,11 @@
 Usage::
 
     prof = Profiler(out_dir, tracing=True)
-    mid = prof.register_module("train_step", compiled.as_text())  # GPU binary
+    module = export.module_from_export("step", export.export_step(
+        step_fn, args))                     # core.export: the GPU binary
+    mid = prof.register_structure("step", module, export.cost(module))
     prof.start()
-    with prof.dispatch("kernel", "train_step", stream=0, module_id=mid):
+    with prof.dispatch("kernel", "step", stream=0, module_id=mid):
         out = step_fn(...)            # timed; samples synthesized on exit
     prof.flush()
     paths = prof.write()              # per-thread + per-stream profiles
@@ -47,7 +49,7 @@ from repro_torch.core.metrics import MetricRegistry, default_registry
 from repro_torch.core.monitor import (ACTIVITY, OP, GpuActivity, GpuOperation,
                                 MonitorThread)
 from repro_torch.core.profmt import write_profile
-from repro_torch.core.structure import HloModule, parse_hlo
+from repro_torch.core.structure import HloModule
 from repro_torch.core.trace import TraceWriter, pack_dispatch_ctx
 
 # tool frames pruned from host unwinds (matches unwind_host_stack)
@@ -164,30 +166,39 @@ class Profiler:
         self._monitor.trace_sink = self._stream_profile_sink
 
     # ------------------------------------------------------------------ #
-    def register_module(self, name: str, hlo_text: str,
-                        cost: Optional[dict] = None) -> int:
-        """Record a loaded 'GPU binary' for later analysis (§3).
+    def register_structure(self, name: str, module: HloModule,
+                           cost: Optional[dict] = None) -> int:
+        """Record a loaded 'GPU binary' for later analysis (§3): the
+        program structure ``core.export.module_from_export`` builds from a
+        ``torch.export`` graph of a step (a PyTorch program has no HLO
+        text to parse).
 
-        ``cost`` is the module's ``compiled.cost_analysis()`` dict; when
-        given, hardware-counter readings (enable_counters) calibrate
-        their flop/byte totals against it instead of relying purely on
-        the parsed estimates."""
+        ``cost`` is the module's ``{"flops", "bytes accessed"}`` dict
+        (``core.export.cost``); when given, hardware-counter readings
+        (enable_counters) calibrate their flop/byte totals against it
+        instead of relying purely on the structure's estimates."""
         mid = len(self._modules) + 1
-        self._modules[mid] = parse_hlo(hlo_text, name=name)
+        self._modules[mid] = module
         self._module_names[mid] = name
         if cost is not None:
-            # jax may hand back a single-element list
-            if isinstance(cost, (list, tuple)):
-                cost = cost[0] if cost else {}
             self._module_costs[mid] = dict(cost)
         return mid
 
     def enable_counters(self, counters, *, replay: bool = True):
-        """Kernel-granularity hardware-counter collection (paper §6).
-        The port has no counter collector yet: the attribution path
-        below reads ``self._counters`` but nothing sets it."""
-        raise NotImplementedError(
-            "hardware counters are not ported to repro_torch yet")
+        """Turn on kernel-granularity hardware-counter collection
+        (paper §6; repro_torch.counters).  Returns the multiplex schedule.
+
+        ``replay=True`` serializes replay passes so every requested
+        counter is measured on every kernel execution; ``replay=False``
+        rotates counter groups across invocations (single-pass
+        best-effort multiplexing).  Must be called identically on every
+        rank so aggregated profiles agree on the counter columns.
+        Readings happen on the monitor thread as records drain, so the
+        rotation order is the per-thread record order (deterministic
+        for one dispatching thread)."""
+        from repro_torch.counters.collector import CounterCollector
+        self._counters = CounterCollector(counters, replay=replay)
+        return self._counters.schedule
 
     def module(self, mid: int) -> HloModule:
         return self._modules[mid]
@@ -196,7 +207,7 @@ class Profiler:
                                    matches: Optional[Dict[str, str]] = None
                                    ) -> int:
         """Bind recovered kernel-interior structures
-        (``repro.core.kstruct.KernelStructure``) to module ``mid``'s
+        (``repro_torch.core.kstruct.KernelStructure``) to module ``mid``'s
         ``custom-call`` ops.  Subsequent PC samples descend into the
         kernels' interiors (loops / inlined scopes / source lines)
         instead of stopping at the opaque op.  Returns total ops bound.
@@ -740,6 +751,18 @@ class Profiler:
         # liveness — the same contract the channel spin had).
         while not append(*args):
             time.sleep(0)
+
+    def build_trace_db(self, out_path: Optional[str] = None) -> str:
+        """Post-mortem step next to aggregation: merge this measurement
+        directory's per-thread/per-stream trace files into one seekable
+        ``trace.db`` (repro.traceview).  Note the merged events carry this
+        rank's *local* ctx ids; ``aggregate(..., trace_paths=...)`` builds
+        the globally-renumbered trace.db in the database directory.
+        """
+        from repro_torch.traceview.tracedb import build_db
+        out_path = out_path or os.path.join(self.out_dir, "trace.db")
+        build_db(self.out_dir, out_path)
+        return out_path
 
 
 class _Dispatch:

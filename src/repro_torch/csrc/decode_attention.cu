@@ -150,7 +150,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
   // this thread's rows: g and g + 8 (only rows < G are real)
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
 
-  for (int step = 0; step < n_steps; ++step) {
+  for (int step = 0; step < n_steps; ++step) {  // kstruct: grid:kv_blocks
     cp_async_wait<NST - 1>();  // step `step` has landed
     __syncwarp();
     const __nv_bfloat16* tK = wK + (step % NST) * STEP;
@@ -283,7 +283,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
       l += cL[r][gg] * w;
       a += cAcc[r * chunk + j] * w;
     }
-    ob[i] = __float2bfloat16(a / fmaxf(l, 1e-30f));
+    ob[i] = __float2bfloat16(a / fmaxf(l, 1e-30f));  // kstruct: store 2
   }
 }
 

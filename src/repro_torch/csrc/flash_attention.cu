@@ -245,7 +245,7 @@ __global__ void __launch_bounds__(kThreads, Tiles<D>::kCtasPerSm)
       mbar_expect_tx(&bar_q, TILE);
       for (int c = 0; c < D / 64; ++c)
         tma_load_4d(sQ + c * kBox, &tq, &bar_q, c * 64, h, q_lo, b);
-      for (int i = 0; i < n_tiles; ++i) {
+      for (int i = 0; i < n_tiles; ++i) {  // kstruct: grid:kv_blocks
         const int k_lo = (t0 + i) * kBK;
         const int sk = i % NK, sv = i % NV;
         mbar_wait(&empty_k[sk], ((i / NK) & 1) ^ 1);  // first round passes
@@ -277,7 +277,7 @@ __global__ void __launch_bounds__(kThreads, Tiles<D>::kCtasPerSm)
   uint32_t pa[kBK / 16][4];  // P in bf16, the A operand of P V
 
   mbar_wait(&bar_q, 0);
-  for (int i = 0; i < n_tiles; ++i) {
+  for (int i = 0; i < n_tiles; ++i) {  // kstruct: grid:kv_blocks
     const int k_lo = (t0 + i) * kBK;
     const int sk = i % NK, sv = i % NV;
     float sc[32];
@@ -310,7 +310,7 @@ __global__ void __launch_bounds__(kThreads, Tiles<D>::kCtasPerSm)
     __nv_bfloat16* orow = ob + (long)r * q_rs;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =  // kstruct: store 4
           __floats2bfloat162_rn(acc[4 * n + 2 * row] * inv[row],
                                 acc[4 * n + 2 * row + 1] * inv[row]);
   }

@@ -210,7 +210,7 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
   }
   for (Walk w(d.st_pad); w.r < d.c_pad; w.next())
     dst[w.r * ldb + w.c] = (w.r < valid && w.c < d.st)
-                               ? s0[(long)w.r * d.st + w.c]
+                               ? s0[(long)w.r * d.st + w.c]  // kstruct: load 2
                                : __float2bfloat16(0.f);
 }
 
@@ -296,7 +296,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();
     for (int r = lane; r < d.c_pad; r += 32) w[r] = expf(total - w[r]);
     if (lane == 0)
-      decay[((long)b * d.n_chunks + ci) * d.nh + h_first + hh] = expf(total);
+      decay[((long)b * d.n_chunks + ci) * d.nh + h_first + hh] = expf(total);  // kstruct: store 4
   }
   __syncthreads();
   // B * w in bf16, two columns a thread at a time
@@ -353,11 +353,11 @@ __global__ void __launch_bounds__(kThreads)
             float* o = out + dd * d.st + s;
             if (dd >= d.hd || s >= d.st) continue;
             if (d.st % 2 == 0) {  // a quad's 4 float2 fill a 32-byte sector
-              *reinterpret_cast<float2*>(o) =
+              *reinterpret_cast<float2*>(o) =  // kstruct: store 8
                   make_float2(acc[n][2 * hf], acc[n][2 * hf + 1]);
             } else {
-              o[0] = acc[n][2 * hf];
-              if (s + 1 < d.st) o[1] = acc[n][2 * hf + 1];
+              o[0] = acc[n][2 * hf];  // kstruct: store 4
+              if (s + 1 < d.st) o[1] = acc[n][2 * hf + 1];  // kstruct: store 4
             }
           }
         }
@@ -382,24 +382,24 @@ __global__ void __launch_bounds__(kPassThreads)
   float* p = states + ((long)b * n_chunks * nh + h) * hdst + e;
   const float* a = decay + (long)b * n_chunks * nh + h;
   const long ps = (long)nh * hdst;  // stride of one chunk
-  float hc = h0 ? h0[idx] : 0.f;
-  for (int i0 = 0; i0 < n_chunks; i0 += kPassAhead) {
+  float hc = h0 ? h0[idx] : 0.f;  // kstruct: load 4
+  for (int i0 = 0; i0 < n_chunks; i0 += kPassAhead) {  // kstruct: grid:chunks
     float sv[kPassAhead], av[kPassAhead];
 #pragma unroll
     for (int j = 0; j < kPassAhead; ++j) {
       const bool ok = i0 + j < n_chunks;
-      sv[j] = ok ? p[(i0 + j) * ps] : 0.f;
-      av[j] = ok ? a[(long)(i0 + j) * nh] : 0.f;
+      sv[j] = ok ? p[(i0 + j) * ps] : 0.f;  // kstruct: load 4
+      av[j] = ok ? a[(long)(i0 + j) * nh] : 0.f;  // kstruct: load 4
     }
 #pragma unroll
     for (int j = 0; j < kPassAhead; ++j) {
       if (i0 + j < n_chunks) {
-        p[(i0 + j) * ps] = hc;
+        p[(i0 + j) * ps] = hc;  // kstruct: store 4
         hc = av[j] * hc + sv[j];
       }
     }
   }
-  h_out[idx] = hc;
+  h_out[idx] = hc;  // kstruct: store 4
 }
 
 // The entering states of the group's heads, fp32 in shared memory as the
@@ -635,7 +635,7 @@ __global__ void __launch_bounds__(kThreads)
               const uint32_t c1 = __shfl_sync(0xffffffffu, c2, src + 1);
               const int t = r ? t1 : t0;
               if (t < valid && col < d.hd)
-                *reinterpret_cast<uint2*>(yh + (long)t * d.nh * d.hd + col) =
+                *reinterpret_cast<uint2*>(yh + (long)t * d.nh * d.hd + col) =  // kstruct: store 8
                     q < 2 ? make_uint2(a0, a1) : make_uint2(c0, c1);
             }
           }

@@ -61,6 +61,14 @@ def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, H, D).to(q.dtype)
 
 
+def work(B: int, H: int, Hkv: int, D: int, length: int) -> tuple:
+    """(FLOPs, bytes) of one call: QK^T and PV over ``length`` keys; q
+    read and the output written once, the first ``length`` rows of each
+    cache read once, bf16."""
+    return (4.0 * B * H * length * D,
+            2.0 * (2 * B * H * D + 2 * B * length * Hkv * D))
+
+
 def plan_splits(batch: int, n_kv_heads: int, length: int, n_sms: int
                 ) -> tuple:
     """(n_splits, keys_per_split): split [0, length) into ranges of any

@@ -60,6 +60,16 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
+def work(B: int, S: int, H: int, Hkv: int, D: int, window: int = 0
+         ) -> tuple:
+    """(FLOPs, bytes) of one call: QK^T and PV over the causal (and
+    window) pairs; q, k, v read once and the output written once, bf16."""
+    w = window or S
+    pairs = sum(min(i + 1, w) for i in range(S))
+    return (4.0 * B * H * pairs * D,
+            2.0 * (2 * B * S * H * D + 2 * B * S * Hkv * D))
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.flash_attention_fwd_bf16

@@ -116,6 +116,22 @@ def ssm_scan_plain(xv: torch.Tensor, logdecay: torch.Tensor,
     return y.to(xv.dtype), h
 
 
+def work(B: int, S: int, nh: int, hd: int, st: int, chunk: int) -> tuple:
+    """(FLOPs, bytes) of one call.  FLOPs: per (batch, chunk) C B^T over
+    the causal pairs, shared by the heads; per head the masked product
+    with X, the inter-chunk term and the state update.  Bytes: xv and y
+    (bf16), logdecay (fp32), B and C (bf16) and h_final (fp32), each
+    once."""
+    c = min(chunk, S)
+    n_chunks = -(-S // c)
+    tri = c * (c + 1) / 2
+    flops = 2.0 * B * n_chunks * (tri * st + nh * (tri * hd + 2 * c * st
+                                                    * hd))
+    nbytes = (2 * B * S * nh * hd * 2 + B * S * nh * 4 + 2 * B * S * st * 2
+              + B * nh * hd * st * 4)
+    return flops, float(nbytes)
+
+
 def _up16(x: int) -> int:
     return -(-x // 16) * 16
 

@@ -8,12 +8,21 @@ batch's KV cache.  Every device-side step goes through
 dispatch, so the profile's kernel times are device times.  Prompts come
 from the same ``numpy`` generator calls as the JAX package's driver, so
 both packages serve identical requests for one seed.
+
+With a profile directory, the warm-up also registers both steps as the
+profiler's "GPU binaries" before measurement starts: each step is
+exported (``core.export``), the three kernels' interiors recovered from
+their CUDA source at the path's shapes (``kernels.kernel_structures``)
+are bound to its ``custom-call`` ops, and every dispatch then draws PC
+samples over the step's ops that descend into the kernels.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,14 +47,20 @@ def serve(cfg: ModelConfig, *, n_requests: int = 8, batch: int = 4,
           prompt_len: int = 32, gen_len: int = 16, seed: int = 0,
           profile_dir: Optional[str] = None, redundant_sync: bool = False,
           opts: Optional[T.ModelOptions] = None, serving=None,
-          rid_prefix: str = "", device="cuda", params=None):
+          rid_prefix: str = "", device="cuda", params=None,
+          counters: Optional[Sequence[str]] = None):
     """Returns (generated tokens (n_requests, gen_len) int64 on ``device``,
-    profile paths).
+    profile paths; with a profile directory, ``paths["measurement"]`` is a
+    JSON file of each registered step's op count, custom-calls, export
+    seconds and cost under ``steps``, and the profiler's own overhead
+    counters under ``profiler``).
 
     ``params`` takes a parameter tree (e.g. from ``convert.params_from_jax``)
     instead of the seeded initialisation.  ``serving`` (the always-on
     serving profiler) is not ported yet and must be None; ``rid_prefix``
     names its request windows and is accepted for signature parity.
+    ``counters`` (with a profile directory) turns on the profiler's
+    hardware-counter collection for these counter names.
     """
     if serving is not None:
         raise NotImplementedError("repro_torch has no serving profiler yet; "
@@ -68,7 +83,8 @@ def serve(cfg: ModelConfig, *, n_requests: int = 8, batch: int = 4,
     if profile_dir:
         from repro_torch.core.profiler import Profiler
         prof = Profiler(profile_dir, tracing=True, rng_seed=seed)
-        prof.start()
+        if counters:
+            prof.enable_counters(counters)
 
     # --- warm-up: build and load the kernels and run both steps once
     # before the measured loop, so the first batch's dispatch does not
@@ -80,6 +96,16 @@ def serve(cfg: ModelConfig, *, n_requests: int = 8, batch: int = 4,
     tok = logits.argmax(-1)
     decode_fn(params, cache, prompt_len, token=tok)
     sync()
+    mid_p = mid_d = None
+    structure = {}
+    if prof is not None:
+        # register both steps and bind the kernels' interiors before the
+        # profiler starts: the op-context cache belongs to its monitor
+        # thread from then on.  decode's structure does not depend on pos.
+        mid_p, mid_d, structure = register_steps(
+            prof, cfg, opts, params, warm_in, cache, tok, batch, prompt_len,
+            max_len, prefill_fn, decode_fn)
+        prof.start()
 
     rng = np.random.default_rng(seed)
     outs = []
@@ -92,7 +118,7 @@ def serve(cfg: ModelConfig, *, n_requests: int = 8, batch: int = 4,
         # --- prefill ------------------------------------------------------
         if prof is not None:
             with prof.dispatch("kernel", "prefill", stream=0,
-                               module_id=None):
+                               module_id=mid_p):
                 logits, cache = prefill_fn(params, batch_in)
                 sync()
         else:
@@ -106,7 +132,7 @@ def serve(cfg: ModelConfig, *, n_requests: int = 8, batch: int = 4,
             pos = prompt_len + t
             if prof is not None:
                 with prof.dispatch("kernel", "decode_step", stream=0,
-                                   module_id=None):
+                                   module_id=mid_d):
                     logits, cache = decode_fn(params, cache, pos, token=tok)
                     sync()
                 if redundant_sync:
@@ -126,7 +152,40 @@ def serve(cfg: ModelConfig, *, n_requests: int = 8, batch: int = 4,
         prof.flush()
         paths = prof.write()
         prof.stop()
+        paths["measurement"] = os.path.join(profile_dir, "measurement.json")
+        with open(paths["measurement"], "w") as f:
+            json.dump({"steps": structure,
+                       "profiler": prof.overhead_counters()}, f, indent=1,
+                      sort_keys=True)
     return torch.cat(outs, dim=0)[:n_requests], paths
+
+
+def register_steps(prof, cfg: ModelConfig, opts: T.ModelOptions, params,
+                   batch_in, cache, token, batch: int, prompt_len: int,
+                   max_len: int, prefill_fn, decode_fn) -> tuple:
+    """Export the prefill and decode steps at these inputs, bind the
+    kernels' interiors at the path's shapes to their ``custom-call`` ops
+    and register both modules with ``prof`` (with their cost).  Returns
+    (prefill module id, decode module id, {step: op count, custom-calls
+    bound, export and registration seconds, cost})."""
+    from repro_torch.core import export
+    from repro_torch.kernels import kernel_structures
+    structures = kernel_structures(cfg, batch, prompt_len, max_len,
+                                   ssm_chunk=opts.ssm_chunk)
+    steps = (("prefill", prefill_fn, (params, batch_in), {}),
+             ("decode_step", decode_fn, (params, cache, prompt_len),
+              {"token": token}))
+    mids, info = [], {}
+    for name, fn, args, kwargs in steps:
+        t0 = time.perf_counter()
+        module = export.module_from_export(
+            name, export.export_step(fn, args, kwargs))
+        bound = sum(module.bind_kernel_structure(ks) for ks in structures)
+        cost = export.cost(module)
+        mids.append(prof.register_structure(name, module, cost))
+        info[name] = dict(ops=len(module.all_ops()), custom_calls=bound,
+                          seconds=time.perf_counter() - t0, **cost)
+    return mids[0], mids[1], info
 
 
 def _grow_cache(cache, max_len: int, cur_len: int):

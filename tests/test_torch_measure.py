@@ -16,8 +16,9 @@ import repro.core.trace as jtrace
 import repro_torch.core.cct as tcct
 import repro_torch.core.profiler as tprofiler
 import repro_torch.core.trace as ttrace
+from repro_torch import copies
 from repro_torch.configs import get_config
-from repro_torch.core import sampling
+from repro_torch.core import derived, kstruct, sampling
 from repro_torch.core.profmt import read_profile
 from repro_torch.launch import serve as serve_mod
 
@@ -45,7 +46,10 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_repro():
     bad = []
     files = _port_sources()
-    assert len(files) > 20
+    assert len(files) > 60
+    # the measurement and analysis subpackages are among them
+    for sub in ("core/pipeline", "counters", "traceview", "ft", "serving"):
+        assert any(os.path.join(PORT, sub) + os.sep in f for f in files), sub
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -59,7 +63,12 @@ def test_port_imports_with_jax_blocked():
     module of the JAX package."""
     code = ("import sys; sys.modules['jax'] = None\n"
             "import repro_torch.launch.serve, repro_torch.kernels.ops, "
-            "repro_torch.core.profiler, repro_torch.convert\n"
+            "repro_torch.core.profiler, repro_torch.convert, "
+            "repro_torch.core.export, repro_torch.core.kstruct, "
+            "repro_torch.core.aggregate, repro_torch.core.viewer, "
+            "repro_torch.core.merge, repro_torch.core.derived, "
+            "repro_torch.counters, repro_torch.traceview, repro_torch.ft, "
+            "repro_torch.serving.window, repro_torch.copies\n"
             "bad = [m for m in sys.modules if m == 'repro' "
             "or m.startswith('repro.')]\n"
             "assert not bad, bad\n")
@@ -80,16 +89,39 @@ def test_serve_without_device_needs_cuda():
     assert serve_mod.resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("name", ["metrics", "channels", "trace", "profmt",
-                                  "structure", "monitor"])
+@pytest.mark.parametrize("name", copies.COPIES)
 def test_copied_modules_differ_only_in_imports(name):
-    """The measurement copies that need no change are the JAX package's
-    modules with their imports pointed at repro_torch.core."""
-    with open(os.path.join(REPO, "src", "repro", "core", f"{name}.py")) as f:
-        want = f.read()
-    with open(os.path.join(PORT, "core", f"{name}.py")) as f:
-        got = f.read().replace("repro_torch.core", "repro.core")
+    """The measurement and analysis copies are the JAX package's modules
+    with their imports pointed at repro_torch, nothing else changed."""
+    with open(os.path.join(REPO, "src", "repro", name)) as f:
+        want = copies.port_text(f.read())
+    with open(os.path.join(PORT, name)) as f:
+        got = f.read()
     assert got == want
+    assert "import repro." not in got and "from repro." not in got
+
+
+def _class_source(path, name, stop):
+    """The text of class ``name`` in ``path`` up to the line ``stop``."""
+    with open(path) as f:
+        text = f.read()
+    start = text.index(f"class {name}")
+    return text[start:text.index(stop, start)]
+
+
+def test_kstruct_copy_differs_only_in_front_end():
+    """KernelLeaf, KernelStructure and the sample descent are the JAX
+    package's byte for byte; the port replaces the jaxpr front end by the
+    CUDA-source one and the chip constants by the H100's."""
+    ref = os.path.join(REPO, "src", "repro", "core", "kstruct.py")
+    port = os.path.join(PORT, "core", "kstruct.py")
+    for name, stop in (("KernelLeaf", "class KernelStructure"),
+                       ("KernelStructure", "    @classmethod")):
+        assert _class_source(port, name, stop) == \
+            _class_source(ref, name, stop)
+    assert kstruct.PEAK_FLOPS == sampling.PEAK_FLOPS == 989e12
+    assert kstruct.HBM_BW == sampling.HBM_BW
+    assert "exp2" in kstruct._TRANSCENDENTAL
 
 
 def test_h100_constants_and_pruned_tool_path():
@@ -97,8 +129,11 @@ def test_h100_constants_and_pruned_tool_path():
         (989e12, 3.35e12, 450e9)
     assert tprofiler._PRUNE[0] == "repro_torch/core"
     assert tcct.unwind_host_stack.__defaults__[2][0] == "repro_torch/core"
-    with pytest.raises(NotImplementedError):
-        tprofiler.Profiler.enable_counters(None, [])
+    # counters are collected: flop efficiency is against the H100 peak
+    prof = tprofiler.Profiler.__new__(tprofiler.Profiler)
+    sched = tprofiler.Profiler.enable_counters(prof, ["flops", "hbm_bytes"])
+    assert sched.n_passes >= 1 and prof._counters is not None
+    assert str(sampling.PEAK_FLOPS * 1e-9) in derived.FLOP_EFFICIENCY.formula
 
 
 def _scripted_run(prof_mod, cct_mod, out_dir):
