@@ -15,20 +15,21 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    plain torch version on the card, in bf16, at the tolerance of the JAX
    package's kernel tests (rtol = atol = 2e-2; the SSD scan's final state
    at 1e-2) and with each output row within 2e-2 of its largest
-   reference value, at both models' shapes and at each kernel's edges
-   (ragged tiles and splits, small windows, q_offset, G = 1 and 8,
-   peaked scores); every decode call is repeated and must be bitwise
-   equal, and must run exactly one device kernel under torch.profiler;
-   every SSD call likewise, with its three device kernels (chunk state,
-   state pass, chunk output), at 10 cases including a partial group of
-   heads, 25 chunks with a ragged tail and unpadded X rows;
+   reference value, at the three attention paths' shapes (qwen2, hymba,
+   granite-moe at D = 64, G = 2) and at each kernel's edges (ragged tiles
+   and splits, small windows, q_offset, G = 1 and 8, peaked scores);
+   every decode call is repeated and must be bitwise equal, and must run
+   exactly one device kernel under torch.profiler; every SSD call
+   likewise, with its three device kernels (chunk state, state pass,
+   chunk output), at 10 cases including a partial group of heads, 25
+   chunks with a ragged tail and unpadded X rows;
 4. time each kernel at each path's shapes, its plain version and one
    library call computing the same function where there is one (a
    yardstick the port never calls), beside the least time the card could
    take for the same work (the kernel modules' own ``work`` counts), and
    the decode kernel at every split count the planner could choose, and
    the SSD scan's device time by step; break a serving step's time down
-   by device kernel.  All of this runs under torch.profiler, for both
+   by device kernel.  All of this runs under torch.profiler, for all four
    models, before the first profiled serve (see ``time_path``);
 5. serve qwen2-1.5b and then hymba-1.5b at full width and depth with
    seeded random weights through ``repro_torch.launch.serve.serve`` under
@@ -45,7 +46,19 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 6. check the output of each: replay every request batch outside ``serve``
    (same tokens, every logit finite), and hold a 2-layer full-width model
    on the card against the same bf16 weights run on the CPU through the
-   plain versions.
+   plain versions;
+7. serve granite-moe-1b-a400m (MoE, 32 experts top 8; both attention
+   kernels) and xlstm-125m (mLSTM + sLSTM; no kernel: the JAX package has
+   none for it) at full width and depth under the always-on serving
+   profiler (``serve(serving=...)``, the governor at budget 0.5), launch
+   counters set to 0 just before and read just after; check launches,
+   every request batch's GPU time in both phases from the aggregated
+   database and PC samples in both attention kernels' interiors; print
+   the governor's final level and the serve wall over that without a
+   profiler; replay and the 2-layer CPU check as in 6 (profiles and
+   databases under ``build/chip_smoke``);
+8. run the port's six-scenario serving sweep (``serving.sweep``) on the
+   card and check every row's per-request attribution.
 
 The line before the last is a JSON object with one entry per kernel and
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -79,6 +92,21 @@ B, N_REQUESTS, GEN_LEN = 4, 8, 32
 # slots through decode and puts a roll of 1536 % 1024 = 512 on the path.
 PATHS = {"qwen2-1.5b": dict(prompt=512, cpu_prompt=64, cpu_window=0),
          "hymba-1.5b": dict(prompt=1536, cpu_prompt=192, cpu_window=128)}
+# the paths served under the always-on serving profiler (governor at the
+# sweep's budget): granite-moe runs both attention kernels at D = 64,
+# G = 2; xlstm runs none (the JAX package has no mLSTM kernel), and its
+# 2-layer CPU check keeps one layer of each block kind.  xlstm's prompt
+# is cut from 512 to 96: torch.export unrolls the sLSTM's time loop
+# (about 74 ops a token), and on the card's host the prefill step's
+# export took 235.6 s at 512 (38,931 ops) and 56.9-63.8 s at 112 (9471)
+SERVING_PATHS = {
+    "granite-moe-1b-a400m": dict(prompt=512, cpu_prompt=64, cpu_window=0),
+    "xlstm-125m": dict(prompt=96, cpu_prompt=64, cpu_window=0,
+                       cpu_blocks=("mlstm", "slstm"))}
+# where the serving paths and the sweep write their profiles and
+# databases (tens of MB a model)
+SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
+BUDGET = 0.5     # the serving sweep's overhead budget
 KERNELS = ("flash_attention", "flash_decode", "ssm_scan")
 COUNTERS = ("flops", "mxu_flops", "hbm_bytes", "inst_executed", "active_ns",
             "elapsed_ns")
@@ -187,6 +215,9 @@ def check_kernels() -> tuple:
             (B, 1536, 1536, 25, 5, 64, 1024, 0, 1.0),
             (B, 1536, 1536, 25, 5, 64, 0, 0, 1.0),
             (1, 300, 300, 10, 2, 64, 64, 0, 4.0),
+            # granite-moe's main path: D = 64, G = 2, causal, no window
+            (B, 512, 512, 16, 8, 64, 0, 0, 1.0),
+            (B, 512, 512, 16, 8, 64, 0, 0, 4.0),
             # the wgmma kernel's edges: S and Sk off its 64-row tiles, a
             # window under one kv tile, q_offset at D = 64, peaked scores
             (1, 200, 200, 4, 1, 64, 48, 0, 4.0),
@@ -203,9 +234,10 @@ def check_kernels() -> tuple:
              fa.flash_attention_plain(q, k, v, q_offset=q_off, **kw))
     # decode: the JAX test's flat softmax (all inputs x0.5) and a peaked
     # one (scores of std 4), where a wrong split merge is large; qwen2's
-    # cache and a long one at D=128 G=6, hymba's full ring at D=64 G=5
+    # cache and a long one at D=128 G=6, hymba's full ring at D=64 G=5,
+    # granite-moe's cache at D=64 G=2
     for h, hkv, d, smax in ((12, 2, 128, 544), (12, 2, 128, 4096),
-                            (25, 5, 64, 1024)):
+                            (25, 5, 64, 1024), (16, 8, 64, 544)):
         for q_scale, kv_scale in ((0.5, 0.5), (4.0, 1.0)):
             q = _randn((B, h, d), gen, q_scale)
             kc = _randn((B, smax, hkv, d), gen, kv_scale)
@@ -219,6 +251,7 @@ def check_kernels() -> tuple:
     for h, hkv, d, smax, lengths in (
             (12, 2, 128, 544, (1, 17, 33, 100, 527)),
             (25, 5, 64, 1024, (1, 47, 1000)),
+            (16, 8, 64, 544, (1, 33, 528)),
             (2, 2, 128, 300, (1, 31, 299)), (2, 2, 64, 300, (5, 129)),
             (16, 2, 128, 600, (1, 63, 600)), (16, 2, 64, 600, (9, 257))):
         for q_scale, kv_scale in ((0.5, 0.5), (4.0, 1.0)):
@@ -310,8 +343,9 @@ def check_kernels() -> tuple:
         raise AssertionError(f"ssm_scan ran {distinct} distinct device "
                              f"kernels, {per_call} per call; want "
                              f"{SSM_STEPS}")
-    # one device kernel per decode call, at both paths' shapes
-    for h, hkv, d, smax in ((12, 2, 128, 544), (25, 5, 64, 1024)):
+    # one device kernel per decode call, at the three paths' shapes
+    for h, hkv, d, smax in ((12, 2, 128, 544), (25, 5, 64, 1024),
+                            (16, 8, 64, 544)):
         q = _randn((B, h, d), gen, 0.5)
         kc = _randn((B, smax, hkv, d), gen, 0.5)
         distinct, per_call = device_kernels(
@@ -812,7 +846,7 @@ def line_table(sass: str) -> set:
 
 def check_sass() -> dict:
     """Ground the source-derived kernel structures in the binaries: at
-    both paths' shapes, every dot_general leaf's line has at least one
+    every path's shapes, every dot_general leaf's line has at least one
     SASS instruction.  Returns {kernel: dot_general lines checked}."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, kernel_structures
@@ -820,7 +854,7 @@ def check_sass() -> dict:
     tables = {name: sass_lines(str(path), os.path.join(
         str(build.BUILD_DIR), "sass", name)) for name, path in libs.items()}
     checked = {}
-    for name, spec in PATHS.items():
+    for name, spec in {**PATHS, **SERVING_PATHS}.items():
         prompt = spec["prompt"]
         for ks in kernel_structures(get_config(name), B, prompt,
                                     prompt + GEN_LEN):
@@ -911,10 +945,11 @@ def step_breakdown(cfg, params, prompt: int, n_decode: int = 8) -> dict:
     return out
 
 
-def check_against_cpu(cfg, prompt: int, window: int) -> float:
-    """A 2-layer model at full width (window layers at ``window``): kernels
-    on the card against the same bf16 weights on the CPU through the plain
-    versions, prefill plus 4 teacher-forced decode steps.  Both sides round
+def check_against_cpu(cfg, prompt: int, window: int, blocks=None) -> float:
+    """A 2-layer model at full width (window layers at ``window``; with
+    ``blocks``, that block pattern): kernels on the card against the same
+    bf16 weights on the CPU through the plain versions, prefill plus 4
+    teacher-forced decode steps.  Both sides round
     to bf16 at the same points and differ by accumulation order only, a
     few bf16 ulps at the logits' scale; so the max abs logit error is held
     to 2e-2 of the largest reference logit, per step.
@@ -924,16 +959,27 @@ def check_against_cpu(cfg, prompt: int, window: int) -> float:
     about 128 (qwen2; hymba's are of the same order): a one-hot softmax
     whose winner flips under any rounding.  wq and wk are scaled by 1/8
     here so that scores are of unit scale and the comparison measures the
-    kernels, not near-ties.  Returns the largest error ratio."""
+    kernels, not near-ties.  The mLSTM's wq, wk and gate projection wif
+    take their fan-in from the head axis too (4 heads at xlstm-125m's
+    width): its q.k scores and exponential gates' pre-activations are then
+    tens, where bf16 rounding alone moves the output by a large fraction
+    (73% of the largest logit between JAX in bf16 and in f32 at the
+    reduced width, scripts/xlstm_conditioning.py); they are scaled by 1/16
+    here, about the ratio of that fan-in to the projection's width.
+    Returns the largest error ratio."""
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import transformer as T
     small = dataclasses.replace(cfg, n_layers=2, window=window)
+    if blocks:
+        small = dataclasses.replace(small, block_pattern=tuple(blocks))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     p_gpu = T.init_params(gen, small)
-    for attn in (e["attn"] for e in p_gpu["layers"].values()):
-        attn["wq"].mul_(0.125)
-        attn["wk"].mul_(0.125)
+    for e in p_gpu["layers"].values():
+        for w in ("wq", "wk") if "attn" in e else ():
+            e["attn"][w].mul_(0.125)
+        for w in ("wq", "wk", "wif") if "mlstm" in e else ():
+            e["mlstm"][w].mul_(1 / 16)
     p_cpu = _tree(p_gpu, lambda x: x.cpu())
     opts = T.ModelOptions(q_chunk=64, kv_chunk=64, ssm_chunk=64)
     toks = torch.from_numpy(np.random.default_rng(3).integers(
@@ -978,6 +1024,11 @@ def init_params(name: str) -> dict:
     return T.init_params(gen, get_config(name))
 
 
+def _has_attention(cfg) -> bool:
+    from repro_torch.configs.base import ATTN, HYBRID, SWA
+    return any(k in (ATTN, SWA, HYBRID) for k in cfg.blocks)
+
+
 def time_path(name: str, params) -> dict:
     """Time one model's kernels and break its steps down under
     torch.profiler.  Runs before any of the port's profiled serves: once
@@ -988,7 +1039,12 @@ def time_path(name: str, params) -> dict:
     no samples).  Returns the kernel times."""
     from repro_torch.configs import get_config
     cfg = get_config(name)
-    prompt = PATHS[name]["prompt"]
+    prompt = {**PATHS, **SERVING_PATHS}[name]["prompt"]
+    if not _has_attention(cfg):
+        print(f"{name} step breakdown: "
+              f"{json.dumps(step_breakdown(cfg, params, prompt))}",
+              flush=True)
+        return {}
     times, splits, steps = time_kernels(cfg, prompt)
     for kname, (t, calls) in times.items():
         by_step = (f"; device ms by step {json.dumps(steps)}"
@@ -1049,6 +1105,156 @@ def serve_path(name: str, params) -> dict:
     return srv
 
 
+def run_serving(cfg, params, prompt: int) -> dict:
+    """A main path under the always-on serving profiler (the governor at
+    the sweep's budget): ``serve(serving=...)`` with every kernel launch
+    counter set to 0 just before and read just after; the profiles are
+    written and the profiler stopped after."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.serving import GovernorConfig, ServingProfiler
+    out_dir = os.path.join(SCRATCH, "serving", cfg.name)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    sp = ServingProfiler(out_dir, governor=GovernorConfig(budget=BUDGET,
+                                                          interval=4))
+    sp.start()
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
+    t0 = time.monotonic()
+    toks, paths = serve(cfg, n_requests=N_REQUESTS, batch=B,
+                        prompt_len=prompt, gen_len=GEN_LEN, serving=sp,
+                        device="cuda", params=params)
+    wall = time.monotonic() - t0
+    launches = {name: getattr(ops, name).launches for name in KERNELS}
+    sp.profiler.flush()
+    paths = sp.write()
+    status, governor = sp.status(), sp.governor.state()
+    sp.stop()
+    n_batches = -(-N_REQUESTS // B)
+    n_attn = cfg.n_layers if _has_attention(cfg) else 0
+    want = {"flash_attention": n_attn * (n_batches + 1),
+            "flash_decode": n_attn * ((GEN_LEN - 1) * n_batches + 1),
+            "ssm_scan": 0}
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: launch counts {launches}, "
+                             f"expected {want}")
+    if tuple(toks.shape) != (N_REQUESTS, GEN_LEN):
+        raise AssertionError(f"tokens shape {tuple(toks.shape)}")
+    with open(os.path.join(out_dir, "measurement.json")) as f:
+        steps = json.load(f)["steps"]
+    return dict(tokens=toks, launches=launches, wall_s=wall, paths=paths,
+                status=status, governor=governor, steps=steps)
+
+
+def check_attribution(cfg, paths: dict) -> dict:
+    """Aggregate a serving-profiler run into ``build/chip_smoke/db/<model>``
+    and read back what its operator reads: every request batch's GPU time in both phases, the latency
+    percentiles, and PC samples in each kernel's interior under its step.
+    Returns {attribution rows, percentiles, samples}."""
+    from repro_torch.serving.window import DECODE, PREFILL
+    from repro_torch.traceview.stats import (request_attribution,
+                                             request_latency_percentiles)
+    from repro_torch.traceview.tracedb import TraceDB
+    db = _database(paths, os.path.join(SCRATCH, "db", cfg.name))
+    lines = TraceDB(db.trace_db_path()).line_views()
+    rows = request_attribution(lines, db)
+    rids = {f"r{lo}-r{min(lo + B, N_REQUESTS) - 1}"
+            for lo in range(0, N_REQUESTS, B)}
+    got = {rid: by for rid, _, by in rows}
+    if set(got) != rids or not all(
+            by.get(PREFILL, 0) > 0 and by.get(DECODE, 0) > 0
+            for by in got.values()):
+        raise AssertionError(f"{cfg.name}: request attribution {rows}, "
+                             f"want GPU time in both phases of {rids}")
+    samples = interior_samples(db)
+    want = {"prefill": "flash_attention", "decode_step": "decode_attention"}
+    for step, kname in want.items() if _has_attention(cfg) else ():
+        k = samples.get(step, {}).get("kernels", {}).get(kname)
+        if not k or k["samples"] <= 0:
+            raise AssertionError(f"{cfg.name} {step}: no PC sample in "
+                                 f"{kname}'s interior: {k}")
+    return dict(
+        attribution=[(rid, total, by) for rid, total, by in rows],
+        latency_ms=request_latency_percentiles(lines, db),
+        samples={step: dict(samples=v["samples"], kernels={
+            kname: k["samples"] for kname, k in v["kernels"].items()})
+            for step, v in samples.items()})
+
+
+def serving_path(name: str, params) -> dict:
+    """Serve one model under the serving profiler, check its launches,
+    request attribution and kernel interiors, the replays and the 2-layer
+    CPU check, and print the governor's final level and the serve wall
+    over that of the same serve without a profiler.  Frees ``params`` on
+    the way.  Returns the serve result."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    spec = SERVING_PATHS[name]
+    prompt = spec["prompt"]
+    plain_s = [serve_wall(cfg, params, prompt)]
+    srv = run_serving(cfg, params, prompt)
+    plain_s.append(serve_wall(cfg, params, prompt))
+    gov = srv["governor"]
+    print(f"serve {name} under the serving profiler (budget {BUDGET}): "
+          f"{N_REQUESTS} requests x {GEN_LEN} tokens, batch {B}, prompt "
+          f"{prompt}: wall {srv['wall_s']:.2f} s (incl. warm-up, export "
+          f"and registration); launches {json.dumps(srv['launches'])}; "
+          f"governor level {gov['level']} ({gov['level_name']}), "
+          f"{gov['decisions']} decisions, {gov['slo_sheds']} SLO sheds, "
+          f"overhead {gov['overhead']:.4f}; status "
+          f"{json.dumps(srv['status'])}", flush=True)
+    print(f"export {name}: {json.dumps(srv['steps'])}", flush=True)
+    got = check_attribution(cfg, srv["paths"])
+    print(f"attribution {name}: {json.dumps(got)}", flush=True)
+    reg_s = sum(v["seconds"] for v in srv["steps"].values())
+    plain = sum(plain_s) / len(plain_s)
+    print(f"serving profiler overhead {name}: serve wall under the serving "
+          f"profiler {srv['wall_s']:.3f} s (export and registration of both "
+          f"steps {reg_s:.3f} s), without a profiler {plain_s[0]:.3f} / "
+          f"{plain_s[1]:.3f} s; ratio {srv['wall_s'] / plain:.4f}, without "
+          f"the registration {(srv['wall_s'] - reg_s) / plain:.4f}",
+          flush=True)
+    check_replay(cfg, params, srv["tokens"], prompt)
+    print(f"replay {name}: every batch reproduces serve's tokens",
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    worst = check_against_cpu(cfg, spec["cpu_prompt"], spec["cpu_window"],
+                              spec.get("cpu_blocks"))
+    print(f"{name}: 2-layer full-width (prompt {spec['cpu_prompt']}, blocks "
+          f"{spec.get('cpu_blocks', 'as configured')}) vs CPU bf16 plain: "
+          f"max abs logit err / max abs logit {worst:.4f}", flush=True)
+    return srv
+
+
+def run_sweep_on_card() -> list:
+    """The port's six-scenario serving sweep on the card (reduced
+    configurations in bf16 at head_dim 64, prompts 64 / 8, generations 4 /
+    24, 4 requests in batches of 2, budget 0.5); every row must attribute
+    GPU time to every request batch in both phases.  Prints the report
+    lines; returns the rows."""
+    from repro_torch.serving import sweep
+    out = os.path.join(SCRATCH, "sweep")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.monotonic()
+    rows = sweep.run_sweep(out, budget=BUDGET, device="cuda")
+    seconds = time.monotonic() - t0
+    for row in rows:
+        print(f"sweep {sweep.report_line(row)}", flush=True)
+        by = {a["request"]: a["by_phase"] for a in row["attribution"]}
+        if set(by) != {"r0-r1", "r2-r3"} or not all(
+                p.get("prefill", 0) > 0 and p.get("decode", 0) > 0
+                for p in by.values()):
+            raise AssertionError(f"sweep {row['scenario']}: attribution "
+                                 f"{row['attribution']}")
+    if [r["scenario"] for r in rows] != [s.name for s in sweep.SCENARIOS]:
+        raise AssertionError("sweep: not every scenario ran")
+    print(f"sweep: {len(rows)} scenarios in {seconds:.1f} s; rows "
+          f"{json.dumps([dict(scenario=r['scenario'], status=r['status'], governor=r['governor'], trace_latency_ms=r['trace_latency_ms'], attribution=r['attribution']) for r in rows])}",
+          flush=True)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1066,9 +1272,14 @@ def main() -> int:
     errs, ratios = check_kernels()
     print(f"kernel checks passed: max abs err {errs}, largest row "
           f"err / row max {ratios}", flush=True)
-    params = {name: init_params(name) for name in PATHS}
-    times = {name: time_path(name, params[name]) for name in PATHS}
+    names = list(PATHS) + list(SERVING_PATHS)
+    params = {name: init_params(name) for name in names}
+    # every timing under torch.profiler before the first profiled serve
+    times = {name: time_path(name, params[name]) for name in names}
     runs = {name: serve_path(name, params.pop(name)) for name in PATHS}
+    runs.update({name: serving_path(name, params.pop(name))
+                 for name in SERVING_PATHS})
+    run_sweep_on_card()
 
     kernels = []
     for path, run in runs.items():

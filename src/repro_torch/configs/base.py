@@ -3,9 +3,10 @@ so that the port imports nothing of ``repro``.
 
 Every architecture the port serves is a ``ModelConfig`` registered under
 its public id (e.g. ``"qwen2-1.5b"``).  Configs are plain frozen
-dataclasses, hashable and trivially serializable.  Registered so far: the
-dense GQA slice (qwen2-1.5b) and the hybrid attention + mamba slice
-(hymba-1.5b).
+dataclasses, hashable and trivially serializable.  Registered so far:
+dense GQA (qwen2-1.5b), hybrid attention + mamba (hymba-1.5b), MoE
+(granite-moe-1b-a400m) and xLSTM (xlstm-125m); each file is a copy of the
+JAX package's (``repro_torch.copies``).
 """
 from __future__ import annotations
 
@@ -181,4 +182,5 @@ def list_configs() -> Tuple[str, ...]:
 
 def _load_all() -> None:
     # import side effect registers each config
-    from repro_torch.configs import hymba_1_5b, qwen2_1_5b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        granite_moe_1b_a400m, hymba_1_5b, qwen2_1_5b, xlstm_125m)

@@ -43,8 +43,18 @@ COPIES = (
     # hardware counters (their H100 rates come through core.sampling)
     "counters/__init__.py", "counters/taxonomy.py", "counters/scheduler.py",
     "counters/collector.py",
-    # per-request window labels, read by traceview.stats
-    "serving/window.py",
+    # the always-on serving profiler: per-request window labels (read by
+    # traceview.stats), the overhead governor, stats, telemetry and the
+    # facade serve drives
+    "serving/__init__.py", "serving/window.py", "serving/governor.py",
+    "serving/stats.py", "serving/telemetry.py", "serving/live.py",
+    # the configurations the port serves (published widths, unchanged)
+    "configs/qwen2_1_5b.py", "configs/granite_moe_1b_a400m.py",
+    "configs/xlstm_125m.py",
+    # the fleet daemon that takes the serving profiler's telemetry
+    "fleet/__init__.py", "fleet/__main__.py", "fleet/cli.py",
+    "fleet/client.py", "fleet/daemon.py", "fleet/envelope.py",
+    "fleet/journal.py",
 )
 
 _IMPORT_RE = re.compile(r"^(\s*(?:from|import)\s+)repro(?=[.\s])", re.M)

@@ -16,11 +16,12 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
 def kernel_structures(cfg, batch: int, prompt_len: int, max_len: int, *,
                       ssm_chunk: int = 64) -> tuple:
     """The interiors of the kernels a serving path of ``cfg`` runs, at its
-    shapes: flash prefill over the prompt (the layers' window), flash
-    decode at a mid-generation length (a window layer's ring full), and,
-    with mamba layers, the SSD scan of a prefill in chunks of
-    ``ssm_chunk`` (``serve``'s default)."""
-    from repro_torch.configs.base import HYBRID, SWA
+    shapes: with attention layers, flash prefill over the prompt (the
+    layers' window) and flash decode at a mid-generation length (a window
+    layer's ring full); with mamba layers, the SSD scan of a prefill in
+    chunks of ``ssm_chunk`` (``serve``'s default).  An xLSTM stack runs
+    none of them."""
+    from repro_torch.configs.base import ATTN, HYBRID, SWA
     from repro_torch.core.kstruct import KernelStructure
     from repro_torch.kernels import decode_attention, flash_attention, \
         ssm_scan
@@ -30,12 +31,14 @@ def kernel_structures(cfg, batch: int, prompt_len: int, max_len: int, *,
     length = prompt_len + (max_len - prompt_len) // 2
     if window:
         length = min(window, length)
-    shapes = {
-        "flash_attention": dict(B=batch, S=prompt_len, H=h, Hkv=hkv, D=d,
-                                window=window),
-        "decode_attention": dict(B=batch, H=h, Hkv=hkv, D=d, length=length)}
-    works = {"flash_attention": flash_attention.work,
-             "decode_attention": decode_attention.work}
+    shapes, works = {}, {}
+    if any(k in (ATTN, SWA, HYBRID) for k in cfg.blocks):
+        shapes["flash_attention"] = dict(B=batch, S=prompt_len, H=h,
+                                         Hkv=hkv, D=d, window=window)
+        shapes["decode_attention"] = dict(B=batch, H=h, Hkv=hkv, D=d,
+                                          length=length)
+        works["flash_attention"] = flash_attention.work
+        works["decode_attention"] = decode_attention.work
     if HYBRID in cfg.blocks:
         shapes["ssm_scan"] = dict(B=batch, S=prompt_len, nh=h, hd=d,
                                   st=cfg.ssm_state,

@@ -106,14 +106,10 @@ def _(xv, logdecay, Bmat, Cmat, h0, chunk):
 # ---------------------------------------------------------------------------
 # the public wrappers
 # ---------------------------------------------------------------------------
-def flash_attention(q, k, v, causal: bool = True, window: int = 0,
-                    block_q: int = 256, block_kv: int = 256):
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     """q: (B,S,H,D); k/v: (B,Sk,Hkv,D) -> (B,S,H,D).  Causal (+optional
     sliding window) GQA attention with q and k aligned at position 0.
-    ``block_q``/``block_kv`` are the TPU kernel's tile sizes, kept for the
-    signature; the Hopper kernel's tiles are fixed at compile time and
-    the plain version has none."""
-    del block_q, block_kv
+    The Hopper kernel's tiles are fixed at compile time."""
     if q.is_cuda:
         _no_grad_on_cuda("flash_attention", q, k, v)
     elif _needs_grad(q, k, v):
@@ -122,12 +118,10 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     return _flash_attention_op(q, k, v, bool(causal), int(window))
 
 
-def flash_decode(q, k_cache, v_cache, length: int, block_kv: int = 512):
+def flash_decode(q, k_cache, v_cache, length: int):
     """One-token decode attention against a KV cache (B,H,D) x
     (B,Smax,Hkv,D) -> (B,H,D).  ``length`` is a Python int (no device
-    sync); ``block_kv`` is the TPU kernel's tile size, kept for the
-    signature."""
-    del block_kv
+    sync)."""
     if q.is_cuda:
         _no_grad_on_cuda("flash_decode", q, k_cache, v_cache)
     elif _needs_grad(q, k_cache, v_cache):

@@ -68,3 +68,26 @@ def ssm_scan_ref(xv: torch.Tensor, logdecay: torch.Tensor,
                              Bmat[:, t].float())
         ys.append(torch.einsum("bhds,bs->bhd", h, Cmat[:, t].float()))
     return torch.stack(ys, dim=1).to(xv.dtype), h
+
+
+def mlstm_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              ig: torch.Tensor, fg: torch.Tensor, state=None) -> tuple:
+    """Sequential mLSTM oracle (normaliser-augmented state), matching
+    ``models.xlstm`` semantics: ``mlstm_decode`` step by step.
+    q/k: (B,S,nh,dqk); v: (B,S,nh,dv); ig/fg: (B,S,nh) raw gate
+    pre-activations; state (H (B,nh,dqk,dv+1), m (B,nh)) or None.
+    Returns (h (B,S,nh,dv) in q.dtype, (H, m))."""
+    from repro_torch.models.xlstm import mlstm_decode
+    B, S, nh, dqk = q.shape
+    dv = v.shape[-1]
+    if state is None:
+        state = (torch.zeros((B, nh, dqk, dv + 1), dtype=torch.float32,
+                             device=q.device),
+                 torch.full((B, nh), float("-inf"), dtype=torch.float32,
+                            device=q.device))
+    hs = []
+    for t in range(S):
+        h, state = mlstm_decode(q[:, t], k[:, t], v[:, t], ig[:, t],
+                                fg[:, t], state)
+        hs.append(h)
+    return torch.stack(hs, dim=1), state

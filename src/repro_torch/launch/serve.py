@@ -11,14 +11,24 @@ both packages serve identical requests for one seed.
 
 With a profile directory, the warm-up also registers both steps as the
 profiler's "GPU binaries" before measurement starts: each step is
-exported (``core.export``), the three kernels' interiors recovered from
-their CUDA source at the path's shapes (``kernels.kernel_structures``)
-are bound to its ``custom-call`` ops, and every dispatch then draws PC
+exported (``core.export``), the kernels' interiors recovered from their
+CUDA source at the path's shapes (``kernels.kernel_structures``) are
+bound to its ``custom-call`` ops, and every dispatch then draws PC
 samples over the step's ops that descend into the kernels.
+
+With ``serving=`` (the always-on ``serving.ServingProfiler``, started by
+the caller) the steps are registered the same way on its profiler, which
+is already running: the interiors are bound into each exported module
+before ``register_structure`` publishes the module's id, so the monitor
+thread's op-context cache never holds an entry of that id unbound.  Each
+prefill and decode dispatch then runs inside a per-request, per-phase
+window (``request:<id>``, ``phase:<prefill|decode>``) that feeds the
+serving stats, the overhead governor and telemetry.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -31,6 +41,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import transformer as T
+from repro_torch.serving.window import DECODE, PREFILL
 
 
 def resolve_device(device) -> torch.device:
@@ -41,6 +52,12 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "on the CPU")
     return dev
+
+
+def _maybe_window(serving, rid: str, phase: str, tokens: int):
+    if serving is None:
+        return contextlib.nullcontext()
+    return serving.request(rid, phase, tokens=tokens)
 
 
 def serve(cfg: ModelConfig, *, n_requests: int = 8, batch: int = 4,
@@ -56,15 +73,18 @@ def serve(cfg: ModelConfig, *, n_requests: int = 8, batch: int = 4,
     counters under ``profiler``).
 
     ``params`` takes a parameter tree (e.g. from ``convert.params_from_jax``)
-    instead of the seeded initialisation.  ``serving`` (the always-on
-    serving profiler) is not ported yet and must be None; ``rid_prefix``
-    names its request windows and is accepted for signature parity.
-    ``counters`` (with a profile directory) turns on the profiler's
-    hardware-counter collection for these counter names.
+    instead of the seeded initialisation.  ``serving`` takes a started
+    ``repro_torch.serving.ServingProfiler``: every dispatch then runs
+    through its profiler inside per-request/per-phase windows (``r<lo>`` /
+    ``r<lo>-r<hi>`` for a batch, prefixed by ``rid_prefix``), and the
+    caller owns its lifecycle and output; the paths returned are None and
+    the steps' op counts and export seconds go to ``measurement.json`` in
+    its profiler's directory (the last call's).  Mutually exclusive with
+    ``profile_dir``.  ``counters`` (with a profile directory) turns on the
+    profiler's hardware-counter collection for these counter names.
     """
-    if serving is not None:
-        raise NotImplementedError("repro_torch has no serving profiler yet; "
-                                  "pass serving=None")
+    if serving is not None and profile_dir:
+        raise ValueError("pass either serving= or profile_dir=, not both")
     dev = resolve_device(device)
     opts = opts or T.ModelOptions(q_chunk=min(256, prompt_len),
                                   kv_chunk=min(256, prompt_len),
@@ -79,7 +99,7 @@ def serve(cfg: ModelConfig, *, n_requests: int = 8, batch: int = 4,
     decode_fn = steps_mod.make_decode_step(cfg, opts)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
-    prof = None
+    prof = serving.profiler if serving is not None else None
     if profile_dir:
         from repro_torch.core.profiler import Profiler
         prof = Profiler(profile_dir, tracing=True, rng_seed=seed)
@@ -99,30 +119,36 @@ def serve(cfg: ModelConfig, *, n_requests: int = 8, batch: int = 4,
     mid_p = mid_d = None
     structure = {}
     if prof is not None:
-        # register both steps and bind the kernels' interiors before the
-        # profiler starts: the op-context cache belongs to its monitor
-        # thread from then on.  decode's structure does not depend on pos.
+        # register both steps, each with the kernels' interiors bound
+        # before its id is published (the op-context cache belongs to the
+        # monitor thread of a running profiler).  decode's structure does
+        # not depend on pos.
         mid_p, mid_d, structure = register_steps(
             prof, cfg, opts, params, warm_in, cache, tok, batch, prompt_len,
             max_len, prefill_fn, decode_fn)
-        prof.start()
+        if serving is None:
+            prof.start()
 
     rng = np.random.default_rng(seed)
     outs = []
     n_batches = (n_requests + batch - 1) // batch
-    for _ in range(n_batches):
+    for bi in range(n_batches):
+        lo, hi = bi * batch, min(bi * batch + batch, n_requests)
+        rid = f"{rid_prefix}r{lo}" if hi - lo <= 1 \
+            else f"{rid_prefix}r{lo}-r{hi - 1}"
         toks = torch.from_numpy(
             rng.integers(0, cfg.vocab, (batch, prompt_len), np.int32)
         ).to(dev, torch.long)
         batch_in = {"tokens": toks}
         # --- prefill ------------------------------------------------------
-        if prof is not None:
-            with prof.dispatch("kernel", "prefill", stream=0,
-                               module_id=mid_p):
+        with _maybe_window(serving, rid, PREFILL, batch * prompt_len):
+            if prof is not None:
+                with prof.dispatch("kernel", "prefill", stream=0,
+                                   module_id=mid_p):
+                    logits, cache = prefill_fn(params, batch_in)
+                    sync()
+            else:
                 logits, cache = prefill_fn(params, batch_in)
-                sync()
-        else:
-            logits, cache = prefill_fn(params, batch_in)
         # cache is sized prompt_len by prefill; decode needs max_len slots
         cache = _grow_cache(cache, max_len, prompt_len)
         tok = logits.argmax(-1)
@@ -130,33 +156,38 @@ def serve(cfg: ModelConfig, *, n_requests: int = 8, batch: int = 4,
         # --- decode -------------------------------------------------------
         for t in range(gen_len - 1):
             pos = prompt_len + t
-            if prof is not None:
-                with prof.dispatch("kernel", "decode_step", stream=0,
-                                   module_id=mid_d):
+            with _maybe_window(serving, rid, DECODE, batch):
+                if prof is not None:
+                    with prof.dispatch("kernel", "decode_step", stream=0,
+                                       module_id=mid_d):
+                        logits, cache = decode_fn(params, cache, pos,
+                                                  token=tok)
+                        sync()
+                    if redundant_sync:
+                        # a sync with no kernel between it and the
+                        # previous sync, found by diff = sync - kernels
+                        with prof.dispatch("sync", "device_sync", stream=0):
+                            sync()
+                        with prof.dispatch("sync", "device_sync", stream=0):
+                            sync()
+                else:
                     logits, cache = decode_fn(params, cache, pos, token=tok)
-                    sync()
-                if redundant_sync:
-                    # a sync with no kernel between it and the previous
-                    # sync, found by diff = sync - kernels
-                    with prof.dispatch("sync", "device_sync", stream=0):
-                        sync()
-                    with prof.dispatch("sync", "device_sync", stream=0):
-                        sync()
-            else:
-                logits, cache = decode_fn(params, cache, pos, token=tok)
             tok = logits.argmax(-1)
             gen.append(tok)
         outs.append(torch.stack(gen, dim=1))
     paths = None
     if prof is not None:
-        prof.flush()
-        paths = prof.write()
-        prof.stop()
-        paths["measurement"] = os.path.join(profile_dir, "measurement.json")
-        with open(paths["measurement"], "w") as f:
+        if serving is None:
+            prof.flush()
+            paths = prof.write()
+            prof.stop()
+        measurement = os.path.join(prof.out_dir, "measurement.json")
+        with open(measurement, "w") as f:
             json.dump({"steps": structure,
                        "profiler": prof.overhead_counters()}, f, indent=1,
                       sort_keys=True)
+        if paths is not None:
+            paths["measurement"] = measurement
     return torch.cat(outs, dim=0)[:n_requests], paths
 
 

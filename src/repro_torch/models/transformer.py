@@ -1,15 +1,18 @@
 """Model assembly for serving (prefill and decode): embedding, a stack of
 blocks, final norm and unembedding.  Ported block kinds: ATTN (full causal
-GQA attention), SWA (sliding-window attention over a ring cache) and
-HYBRID (Hymba: sliding-window attention and a mamba mixer in parallel on
-the same input, mixed by ``beta``), each followed by a dense SwiGLU FFN.
+GQA attention), SWA (sliding-window attention over a ring cache), HYBRID
+(Hymba: sliding-window attention and a mamba mixer in parallel on the
+same input, mixed by ``beta``), each followed by a dense SwiGLU or (ATTN
+and SWA with ``use_moe``) a mixture-of-experts FFN, and the xLSTM blocks
+MLSTM and SLSTM, which carry their own projections.
 
 Layers are grouped into *periods* (one repetition of the block pattern)
 and parameters are stacked over periods, keeping the JAX package's
 parameter tree (``{"embed", "unembed", "final_norm", "layers": {"e0":
 ...}}``) so JAX-initialised weights load by key.  Where JAX scans over
-periods, this runs a Python loop.  MAMBA, MLSTM and SLSTM blocks, MoE and
-the training mode raise ``NotImplementedError`` until their slices land.
+periods, this runs a Python loop.  MAMBA blocks, the expert-parallel MoE
+path and the training mode raise ``NotImplementedError`` until their
+slices land.
 """
 from __future__ import annotations
 
@@ -19,10 +22,13 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, HYBRID, SWA, ModelConfig
+from repro_torch.configs.base import (ATTN, HYBRID, MLSTM, SLSTM, SWA,
+                                      ModelConfig)
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import dense_init, rms_norm, swiglu
 
 
@@ -33,10 +39,12 @@ class EntrySpec(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class ModelOptions:
-    """Build-time knobs: the attention and SSD-scan chunk sizes."""
+    """Build-time knobs: the attention and SSD-scan (and mLSTM) chunk
+    sizes, and the sLSTM's timesteps per block."""
     q_chunk: int = 512
     kv_chunk: int = 512
     ssm_chunk: int = 256
+    slstm_block: int = 16
 
 
 def layer_plan(cfg: ModelConfig) -> Tuple[Tuple[EntrySpec, ...], int]:
@@ -56,20 +64,35 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_entry(spec: EntrySpec) -> None:
-    if spec.kind not in (ATTN, SWA, HYBRID) or spec.use_moe:
+    if spec.kind not in (ATTN, SWA, HYBRID, MLSTM, SLSTM):
         raise NotImplementedError(
-            f"block kind {spec.kind!r} (moe={spec.use_moe}): only ATTN, SWA "
-            f"and HYBRID blocks with dense FFNs are ported")
+            f"block kind {spec.kind!r}: only ATTN, SWA, HYBRID, MLSTM and "
+            f"SLSTM blocks are ported")
 
 
 # ---------------------------------------------------------------------------
 # Parameter init
 # ---------------------------------------------------------------------------
+def _init_ffn(gen, cfg: ModelConfig, dtype, n: int) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {"w1": dense_init(gen, (d, f), dtype, lead=(n,)),
+            "w3": dense_init(gen, (d, f), dtype, lead=(n,)),
+            "w2": dense_init(gen, (f, d), dtype, lead=(n,))}
+
+
 def _init_entry(gen, spec: EntrySpec, cfg: ModelConfig, dtype, n: int):
     _check_entry(spec)
-    d, f = cfg.d_model, cfg.d_ff
+    d = cfg.d_model
     ones = dict(dtype=dtype, device=gen.device)
     p: Dict[str, Any] = {"ln1": torch.ones((n, d), **ones)}
+    if spec.kind == MLSTM:
+        p["mlstm"] = xlstm_mod.init_mlstm_params(
+            gen, d, cfg.n_heads, cfg.head_dim, dtype, lead=(n,))
+        return p
+    if spec.kind == SLSTM:
+        p["slstm"] = xlstm_mod.init_slstm_params(gen, d, cfg.n_heads, dtype,
+                                                 lead=(n,))
+        return p
     p["attn"] = attn_mod.init_attn_params(gen, cfg, dtype, lead=(n,))
     if spec.kind == HYBRID:
         p["mamba"] = ssm_mod.init_ssm_params(
@@ -78,10 +101,14 @@ def _init_entry(gen, spec: EntrySpec, cfg: ModelConfig, dtype, n: int):
         p["beta"] = torch.ones((n, 2), dtype=torch.float32,
                                device=gen.device)
     p["ln2"] = torch.ones((n, d), **ones)
-    if f:
-        p["ffn"] = {"w1": dense_init(gen, (d, f), dtype, lead=(n,)),
-                    "w3": dense_init(gen, (d, f), dtype, lead=(n,)),
-                    "w2": dense_init(gen, (f, d), dtype, lead=(n,))}
+    if spec.use_moe and spec.kind != HYBRID:
+        p["moe"] = moe_mod.init_moe_params(gen, d, cfg.d_ff,
+                                           cfg.moe.n_experts, dtype,
+                                           lead=(n,))
+        if cfg.moe.shared_expert:
+            p["shared"] = _init_ffn(gen, cfg, dtype, n)
+    elif cfg.d_ff:
+        p["ffn"] = _init_ffn(gen, cfg, dtype, n)
     return p
 
 
@@ -108,27 +135,43 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda"):
-    """Zero cache tree, stacked over periods: {'e0': {'k', 'v'}, ...}.
-    Window layers (SWA, HYBRID) hold a ring of min(window, max_len)
-    slots; HYBRID adds the mamba state ``ssm`` (fp32) and the conv carry
-    ``conv`` (model dtype)."""
+    """Zero cache tree, stacked over periods: {'e0': {...}, ...}.
+    Attention layers hold ``k``/``v``; window layers (SWA, HYBRID) a ring
+    of min(window, max_len) slots.  HYBRID adds the mamba state ``ssm``
+    (fp32) and the conv carry ``conv`` (model dtype); MLSTM the matrix
+    state ``H`` (fp32, the normaliser as its last value column) and the
+    stabiliser ``m`` at -1e30; SLSTM ``c``, ``n``, ``h`` (fp32 zeros) and
+    ``m`` at -1e30, as in the JAX package."""
     dtype = model_dtype(cfg)
     entries, n_periods = layer_plan(cfg)
+    d = cfg.d_model
+    f32 = dict(dtype=torch.float32, device=device)
     cache = {}
     for i, spec in enumerate(entries):
         _check_entry(spec)
-        smax = min(cfg.window, max_len) if spec.kind in (SWA, HYBRID) \
-            and cfg.window else max_len
-        k = torch.zeros((n_periods, batch, smax, cfg.n_kv_heads,
-                         cfg.head_dim), dtype=dtype, device=device)
-        c = {"k": k, "v": torch.zeros_like(k)}
+        c = {}
+        if spec.kind in (ATTN, SWA, HYBRID):
+            smax = min(cfg.window, max_len) if spec.kind in (SWA, HYBRID) \
+                and cfg.window else max_len
+            k = torch.zeros((n_periods, batch, smax, cfg.n_kv_heads,
+                             cfg.head_dim), dtype=dtype, device=device)
+            c.update(k=k, v=torch.zeros_like(k))
         if spec.kind == HYBRID:
             c["ssm"] = torch.zeros((n_periods, batch, cfg.n_heads,
-                                    cfg.head_dim, cfg.ssm_state),
-                                   dtype=torch.float32, device=device)
+                                    cfg.head_dim, cfg.ssm_state), **f32)
             c["conv"] = torch.zeros((n_periods, batch, ssm_mod.CONV_W - 1,
                                      cfg.n_heads * cfg.head_dim),
                                     dtype=dtype, device=device)
+        if spec.kind == MLSTM:
+            dv = 2 * d // cfg.n_heads
+            c["H"] = torch.zeros((n_periods, batch, cfg.n_heads,
+                                  cfg.head_dim, dv + 1), **f32)
+            c["m"] = torch.full((n_periods, batch, cfg.n_heads), -1e30,
+                                **f32)
+        if spec.kind == SLSTM:
+            for name in ("c", "n", "h"):
+                c[name] = torch.zeros((n_periods, batch, d), **f32)
+            c["m"] = torch.full((n_periods, batch, d), -1e30, **f32)
         cache[f"e{i}"] = c
     return cache
 
@@ -136,41 +179,72 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 # Block application
 # ---------------------------------------------------------------------------
-def _apply_ffn(p, x):
-    """Dense FFN sub-block."""
+def _apply_ffn(p, x, cfg):
+    """Dense or MoE FFN sub-block.  Returns (y, aux): the MoE aux loss,
+    zero for a dense FFN (serving leaves it unused)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "moe" in p:
+        y, aux = moe_mod.moe_ffn(
+            p["moe"], x, n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+            capacity_factor=cfg.moe.capacity_factor)
+        if "shared" in p:
+            y = y + swiglu(x, p["shared"]["w1"], p["shared"]["w3"],
+                           p["shared"]["w2"])
+        return y, aux
     if "ffn" not in p:
-        return torch.zeros_like(x)
-    return swiglu(x, p["ffn"]["w1"], p["ffn"]["w3"], p["ffn"]["w2"])
+        return torch.zeros_like(x), aux
+    return swiglu(x, p["ffn"]["w1"], p["ffn"]["w3"], p["ffn"]["w2"]), aux
+
+
+def _write_states(cache, new: dict):
+    """Decode: write a block's new states into its cache slices in place
+    (the caller returns ``cache``)."""
+    for name, value in new.items():
+        cache[name].copy_(value)
+    return cache
 
 
 def _apply_entry(p, spec: EntrySpec, x, positions, cfg, opts, mode: str,
                  cache=None, cache_pos=None):
-    """One ATTN, SWA or HYBRID block.  Returns (x, new_cache).  In decode
-    every state (k/v, and for HYBRID ``ssm``/``conv``) is written into
-    ``cache`` in place."""
+    """One block.  Returns (x, new_cache).  In decode every state (k/v,
+    ``ssm``/``conv``, the xLSTM states) is written into ``cache`` in
+    place."""
     _check_entry(spec)
     h = rms_norm(x, p["ln1"])
+    decode = mode == "decode"
+    if spec.kind == MLSTM:
+        y, (H, m) = xlstm_mod.mlstm_forward(
+            p["mlstm"], h, n_heads=cfg.n_heads, dqk=cfg.head_dim,
+            chunk=opts.ssm_chunk,
+            state=(cache["H"], cache["m"]) if decode else None)
+        new = {"H": H, "m": m}
+        return x + y, _write_states(cache, new) if decode else new
+    if spec.kind == SLSTM:
+        y, new = xlstm_mod.slstm_forward(
+            p["slstm"], h, n_heads=cfg.n_heads,
+            state={k: cache[k] for k in ("c", "n", "h", "m")}
+            if decode else None, time_block=opts.slstm_block)
+        return x + y, _write_states(cache, new) if decode else new
     window = cfg.window if spec.kind in (SWA, HYBRID) else 0
     y, new_cache = _attention(p["attn"], h, positions, cfg, window, opts,
                               mode, cache, cache_pos)
     if spec.kind == HYBRID:
         ssm_state = conv_state = None
-        if mode == "decode":
+        if decode:
             ssm_state, conv_state = cache["ssm"], cache["conv"]
         ym, (st, cv) = ssm_mod.mamba_forward(
             p["mamba"], h, n_heads=cfg.n_heads, head_dim=cfg.head_dim,
             state=cfg.ssm_state, chunk=opts.ssm_chunk, ssm_state=ssm_state,
             conv_state=conv_state)
-        if mode == "decode":
-            ssm_state.copy_(st)
-            conv_state.copy_(cv)
+        if decode:
+            _write_states(cache, {"ssm": st, "conv": cv})
         else:
             new_cache.update(ssm=st, conv=cv)
         beta = p["beta"].to(x.dtype)
         y = 0.5 * (beta[0] * y + beta[1] * ym)
     x = x + y
-    x = x + _apply_ffn(p, rms_norm(x, p["ln2"]))
-    return x, new_cache
+    y2, _ = _apply_ffn(p, rms_norm(x, p["ln2"]), cfg)
+    return x + y2, new_cache
 
 
 def _attention(ap, h, positions, cfg, window, opts, mode, cache, cache_pos):

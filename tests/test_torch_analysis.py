@@ -19,6 +19,10 @@ from repro_torch.core.aggregate import aggregate
 from repro_torch.core.profiler import Profiler
 from repro_torch.launch.serve import serve
 
+# one intra-op thread: the suite runs in several workers at once, beside
+# wall-clock tests (the serving governor's)
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODELS = ("qwen2-1.5b", "hymba-1.5b")
 COUNTERS = ("flops", "mxu_flops", "hbm_bytes", "inst_executed",

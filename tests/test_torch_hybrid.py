@@ -22,6 +22,10 @@ from repro_torch.kernels import ops
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models import transformer as T
 
+# one intra-op thread: the suite runs in several workers at once, beside
+# wall-clock tests (the serving governor's)
+torch.set_num_threads(1)
+
 PROMPT = 96
 CACHE_KEYS = ("k", "v", "ssm", "conv")
 

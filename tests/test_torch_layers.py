@@ -15,6 +15,10 @@ from repro_torch.configs import get_config, list_configs
 from repro_torch.convert import params_from_jax
 from repro_torch.models import layers as TL
 
+# one intra-op thread: the suite runs in several workers at once, beside
+# wall-clock tests (the serving governor's)
+torch.set_num_threads(1)
+
 RNG = np.random.default_rng(0)
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -108,13 +112,20 @@ def test_hymba_config_matches_jax(reduced):
     _config_matches_jax("hymba-1.5b", reduced)
 
 
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "xlstm-125m"])
+def test_moe_and_xlstm_configs_match_jax(name, reduced):
+    _config_matches_jax(name, reduced)
+
+
 def _config_matches_jax(name, reduced):
     t, j = get_config(name), jax_get_config(name)
     if reduced:
         t, j = t.reduced(), j.reduced()
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert t.blocks == j.blocks and t.n_params() == j.n_params()
-    assert list_configs() == ("hymba-1.5b", "qwen2-1.5b")
+    assert list_configs() == ("granite-moe-1b-a400m", "hymba-1.5b",
+                              "qwen2-1.5b", "xlstm-125m")
 
 
 def test_params_from_jax_bf16_and_readonly():

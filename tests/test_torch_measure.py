@@ -22,6 +22,10 @@ from repro_torch.core import derived, kstruct, sampling
 from repro_torch.core.profmt import read_profile
 from repro_torch.launch import serve as serve_mod
 
+# one intra-op thread: the suite runs in several workers at once, beside
+# wall-clock tests (the serving governor's)
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
 
@@ -48,7 +52,8 @@ def test_port_imports_neither_jax_nor_repro():
     files = _port_sources()
     assert len(files) > 60
     # the measurement and analysis subpackages are among them
-    for sub in ("core/pipeline", "counters", "traceview", "ft", "serving"):
+    for sub in ("core/pipeline", "counters", "traceview", "ft", "serving",
+                "fleet"):
         assert any(os.path.join(PORT, sub) + os.sep in f for f in files), sub
     for path in files:
         for name in _imports(path):
@@ -68,7 +73,9 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.core.aggregate, repro_torch.core.viewer, "
             "repro_torch.core.merge, repro_torch.core.derived, "
             "repro_torch.counters, repro_torch.traceview, repro_torch.ft, "
-            "repro_torch.serving.window, repro_torch.copies\n"
+            "repro_torch.serving.window, repro_torch.serving.sweep, "
+            "repro_torch.fleet, repro_torch.models.moe, "
+            "repro_torch.models.xlstm, repro_torch.copies\n"
             "bad = [m for m in sys.modules if m == 'repro' "
             "or m.startswith('repro.')]\n"
             "assert not bad, bad\n")

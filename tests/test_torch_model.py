@@ -2,6 +2,7 @@
 given the same JAX-initialised parameters carried across through numpy.
 On the CPU both attention wrappers run their plain versions."""
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -13,12 +14,16 @@ from repro.configs import get_config as jax_get_config
 from repro.launch.serve import serve as jax_serve
 from repro.models import transformer as JT
 from repro_torch.configs import get_config
-from repro_torch.configs.base import MLSTM
+from repro_torch.configs.base import MAMBA
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as serve_mod
+from repro_torch.models import moe
 from repro_torch.models import transformer as T
 
+# one intra-op thread: the suite runs in several workers at once, beside
+# wall-clock tests (the serving governor's)
+torch.set_num_threads(1)
 
 
 def configs(dtype):
@@ -153,10 +158,13 @@ def test_init_cache_and_grow_match_jax():
 
 
 def test_unported_paths_raise():
+    """Still unported: MAMBA blocks and the expert-parallel MoE path."""
     cfg, _ = configs("float32")
     gen = torch.Generator()
     with pytest.raises(NotImplementedError):
-        T.init_params(gen, dataclasses.replace(cfg, block_pattern=(MLSTM,)))
+        T.init_params(gen, dataclasses.replace(cfg, block_pattern=(MAMBA,)))
+    mesh_args = types.SimpleNamespace(mesh=object())
     with pytest.raises(NotImplementedError):
-        serve_mod.serve(cfg, device="cpu", serving=object())
+        moe.moe_ffn({}, torch.zeros(1, 2, 4), n_experts=2, top_k=1,
+                    capacity_factor=1.0, mesh_args=mesh_args)
 

@@ -18,6 +18,10 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssm_scan as ss
 from repro_torch.models import ssm as tssm
 
+# one intra-op thread: the suite runs in several workers at once, beside
+# wall-clock tests (the serving governor's)
+torch.set_num_threads(1)
+
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 SSM_SWEEP = [                        # tests/test_kernels.py:93-97

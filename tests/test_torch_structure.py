@@ -29,6 +29,10 @@ from repro_torch.launch import serve as serve_mod
 from repro_torch.launch import steps
 from repro_torch.models import transformer as T
 
+# one intra-op thread: the suite runs in several workers at once, beside
+# wall-clock tests (the serving governor's)
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, S, GEN = 2, 32, 4
 OPTS = T.ModelOptions(q_chunk=16, kv_chunk=16, ssm_chunk=16)
