@@ -22,8 +22,17 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    exactly one device kernel under torch.profiler; every SSD call
    likewise, with its three device kernels (chunk state, state pass,
    chunk output), at 10 cases including a partial group of heads, 25
-   chunks with a ragged tail and unpadded X rows;
-4. time each kernel at each path's shapes, its plain version and one
+   chunks with a ragged tail and unpadded X rows; hold the gradients of
+   the two differentiable wrappers (the kernel forward, the plain
+   recompute backward) against the plain versions' autograd at the
+   training shapes and windowed, ragged edges, and show under
+   torch.profiler that the forward runs the port's kernel and the
+   backward none;
+4. time a train step of qwen2-1.5b and hymba-1.5b at full width and
+   depth under torch.profiler (host wall, device busy, idle share,
+   tokens/s, the kernels' share) on a repeated batch whose loss must
+   fall, and each kernel at the training shapes; time each kernel at
+   each serving path's shapes, its plain version and one
    library call computing the same function where there is one (a
    yardstick the port never calls), beside the least time the card could
    take for the same work (the kernel modules' own ``work`` counts), and
@@ -58,7 +67,17 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    profiler; replay and the 2-layer CPU check as in 6 (profiles and
    databases under ``build/chip_smoke``);
 8. run the port's six-scenario serving sweep (``serving.sweep``) on the
-   card and check every row's per-request attribution.
+   card and check every row's per-request attribution;
+9. train qwen2-1.5b (6 steps of 4 x 512, under the port's profiler) and
+   hymba-1.5b (3 steps of 2 x 1536) at full width and depth through
+   ``repro_torch.launch.train.train``, launch counters set to 0 just
+   before and read just after each: the launch counts the remat policy
+   implies, finite losses, one custom-call per launch in the registered
+   train step, PC samples under its placeholder and in the flash
+   kernel's dot_general leaves; one 2-layer full-width train step (loss
+   and every gradient leaf) against the same bf16 weights on the CPU;
+   a resume from an async checkpoint whose first loss is bitwise the
+   uninterrupted run's.
 
 The line before the last is a JSON object with one entry per kernel and
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -469,33 +488,15 @@ def time_kernels(cfg, prompt: int) -> tuple:
     kernel: ms} of the SSD scan's steps, empty without a mamba layer)."""
     from repro_torch.configs.base import HYBRID, SWA
     from repro_torch.kernels import decode_attention as fd
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    from repro_torch.kernels import ssm_scan as ss
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     windowed = any(k in (SWA, HYBRID) for k in cfg.blocks)
     window = cfg.window if windowed else 0
     res, steps = {}, {}
-    q = _randn((B, prompt, h, d), gen)
-    k = _randn((B, prompt, hkv, d), gen)
-    v = _randn((B, prompt, hkv, d), gen)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    flops, nbytes = fa.work(B, prompt, h, hkv, d, window)
-    if window:
-        i = torch.arange(prompt, device="cuda")
-        band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
-        library = lambda: F.scaled_dot_product_attention(   # noqa: E731
-            qt, kt, vt, attn_mask=band, enable_gqa=True)
-    else:
-        library = lambda: F.scaled_dot_product_attention(   # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-    fns = dict(ms=lambda: ops.flash_attention(q, k, v, window=window),
-               plain_ms=lambda: fa.flash_attention_plain(q, k, v,
-                                                         window=window),
-               library_ms=library)
-    res["flash_attention"] = _timed(fns, *_bound(flops, nbytes))
+    res["flash_attention"] = _timed(*_flash_fns(gen, B, prompt, h, hkv, d,
+                                                window))
     # decode: a mid-generation step; a window layer's ring is full
     smax = prompt + GEN_LEN
     length = prompt + GEN_LEN // 2
@@ -511,7 +512,7 @@ def time_kernels(cfg, prompt: int) -> tuple:
                plain_ms=lambda: fd.flash_decode_plain(qd, kc, vc, length),
                library_ms=lambda: F.scaled_dot_product_attention(
                    qd[:, :, None], kl, vl, enable_gqa=True))
-    res["flash_decode"] = _timed(fns, *_bound(flops, nbytes))
+    res["flash_decode"] = _timed(fns, flops, nbytes)
     # the same call at every split count, [0, length) cut as the planner
     # cuts it, to hold the planner's choice against the alternatives
     splits = {}
@@ -523,17 +524,53 @@ def time_kernels(cfg, prompt: int) -> tuple:
             iters=50))
     plan = fd.plan_splits(B, hkv, length, fd._sm_count(qd.device))
     if HYBRID in cfg.blocks:
-        st, chunk = cfg.ssm_state, min(64, prompt)   # serve's ssm_chunk
-        xv, ld, Bm, Cm, _ = _ssm_inputs(gen, B, prompt, h, d, st)
-        flops, nbytes = ss.work(B, prompt, h, d, st, chunk)
-        # no single PyTorch call computes a selective scan: no yardstick
-        fns = dict(ms=lambda: ops.ssm_scan(xv, ld, Bm, Cm, None, chunk),
-                   plain_ms=lambda: ss.ssm_scan_plain(xv, ld, Bm, Cm,
-                                                      chunk=chunk))
-        res["ssm_scan"] = _timed(fns, *_bound(flops, nbytes))
+        # serve's ssm_chunk
+        fns, flops, nbytes = _ssm_fns(gen, B, prompt, h, d, cfg.ssm_state,
+                                      min(64, prompt))
+        res["ssm_scan"] = _timed(fns, flops, nbytes)
         steps = {(PORT_KERNEL.search(k) or re.search(".*", k)).group(0): v
                  for k, v in device_ms_by_kernel(fns["ms"]).items()}
     return res, dict(planner=list(plan), device_ms=splits), steps
+
+
+def _flash_fns(gen, b: int, s: int, h: int, hkv: int, d: int,
+               window: int) -> tuple:
+    """({ms: the wrapper, plain_ms: the plain version, library_ms: SDPA,
+    causal or with a boolean band mask under a window}, FLOPs, bytes) of
+    flash prefill attention at these shapes, on fresh inputs."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    q = _randn((b, s, h, d), gen)
+    k = _randn((b, s, hkv, d), gen)
+    v = _randn((b, s, hkv, d), gen)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window:
+        i = torch.arange(s, device="cuda")
+        band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        library = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            qt, kt, vt, attn_mask=band, enable_gqa=True)
+    else:
+        library = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    fns = dict(ms=lambda: ops.flash_attention(q, k, v, window=window),
+               plain_ms=lambda: fa.flash_attention_plain(q, k, v,
+                                                         window=window),
+               library_ms=library)
+    return (fns, *fa.work(b, s, h, hkv, d, window))
+
+
+def _ssm_fns(gen, b: int, s: int, h: int, d: int, st: int,
+             chunk: int) -> tuple:
+    """({ms, plain_ms}, FLOPs, bytes) of the SSD scan at these shapes, on
+    fresh inputs; no single PyTorch call computes a selective scan, so
+    there is no library yardstick."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as ss
+    xv, ld, Bm, Cm, _ = _ssm_inputs(gen, b, s, h, d, st)
+    fns = dict(ms=lambda: ops.ssm_scan(xv, ld, Bm, Cm, None, chunk),
+               plain_ms=lambda: ss.ssm_scan_plain(xv, ld, Bm, Cm,
+                                                  chunk=chunk))
+    return (fns, *ss.work(b, s, h, d, st, chunk))
 
 
 def host_us(fn, n: int = 200) -> float:
@@ -594,10 +631,11 @@ def wrapper_host_us(cfg, prompt: int) -> dict:
     return out
 
 
-def _timed(fns: dict, bound_ms: float, bound_by: str) -> tuple:
+def _timed(fns: dict, flops: float, nbytes: float) -> tuple:
     """({ms, plain_ms, library_ms: device ms (library_ms None where no
-    library call computes the function), bound_ms, bound_by}, {same keys:
-    back-to-back call ms})."""
+    library call computes the function), bound_ms, bound_by: the bound of
+    this work}, {same keys: back-to-back call ms})."""
+    bound_ms, bound_by = _bound(flops, nbytes)
     dev = {k: device_ms(f) for k, f in fns.items()}
     calls = {k: call_ms(f) for k, f in fns.items()}
     dev.setdefault("library_ms", None)
@@ -898,11 +936,8 @@ def check_replay(cfg, params, toks, prompt: int) -> None:
 
 
 def step_breakdown(cfg, params, prompt: int, n_decode: int = 8) -> dict:
-    """Where a serving step's time goes, under torch.profiler: host wall
-    time per step against the device's busy time (sum of CUDA kernel
-    time), the idle share, the number of device kernels per step, and the
-    kernels that take most device time."""
-    from torch.profiler import ProfilerActivity, profile
+    """Where a serving step's time goes, under torch.profiler
+    (``profiled_steps``): one prefill, ``n_decode`` decode steps."""
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import steps
     opts = _serve_opts(prompt)
@@ -915,34 +950,43 @@ def step_breakdown(cfg, params, prompt: int, n_decode: int = 8) -> dict:
         logits, cache = prefill(params, batch)
         cache = serve_mod._grow_cache(cache, prompt + GEN_LEN, prompt)
         tok = logits.argmax(-1)
-        n = 1 if phase == "prefill" else n_decode
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for t in range(n):
-                if phase == "prefill":
-                    prefill(params, batch)
-                else:
-                    decode(params, cache, prompt + t, token=tok)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / n
-        ka = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-        busy_ms = sum(e.self_device_time_total for e in ka) / 1e3 / n
-        top = sorted(ka, key=lambda e: -e.self_device_time_total)[:5]
-        port = {}      # the port's own kernels, summed by name
-        for e in ka:
-            m = PORT_KERNEL.search(e.key)
-            if m:
-                port[m.group(0)] = (port.get(m.group(0), 0.0)
-                                    + e.self_device_time_total / 1e3 / n)
-        out[phase] = dict(
-            wall_ms=wall_ms, device_busy_ms=busy_ms,
-            idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-            kernels_per_step=sum(e.count for e in ka) / n,
-            port_kernels_ms=port,
-            top_kernels=[(e.key[:48], e.self_device_time_total / 1e3 / n,
-                          e.count // n) for e in top])
+        steps_run = iter(range(prompt, prompt + n_decode))
+        out[phase] = profiled_steps(
+            (lambda: prefill(params, batch)) if phase == "prefill" else
+            (lambda: decode(params, cache, next(steps_run), token=tok)),
+            1 if phase == "prefill" else n_decode)
     return out
+
+
+def profiled_steps(step, n: int, top: int = 5) -> dict:
+    """``step()`` ``n`` times under torch.profiler: host wall time per step
+    (ending in a synchronize) against the device's busy time (the sum of
+    CUDA kernel time), the idle share, device kernels per step, the port's
+    own kernels' ms per step by name, and the ``top`` kernels that take
+    most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    ka = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in ka) / 1e3 / n
+    port = {}
+    for e in ka:
+        m = PORT_KERNEL.search(e.key)
+        if m:
+            port[m.group(0)] = (port.get(m.group(0), 0.0)
+                                + e.self_device_time_total / 1e3 / n)
+    ranked = sorted(ka, key=lambda e: -e.self_device_time_total)[:top]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+                kernels_per_step=sum(e.count for e in ka) / n,
+                port_kernels_ms=port,
+                top_kernels=[(e.key[:48], e.self_device_time_total / 1e3 / n,
+                              e.count // n) for e in ranked])
 
 
 def check_against_cpu(cfg, prompt: int, window: int, blocks=None) -> float:
@@ -969,6 +1013,7 @@ def check_against_cpu(cfg, prompt: int, window: int, blocks=None) -> float:
     Returns the largest error ratio."""
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
     small = dataclasses.replace(cfg, n_layers=2, window=window)
     if blocks:
         small = dataclasses.replace(small, block_pattern=tuple(blocks))
@@ -980,7 +1025,7 @@ def check_against_cpu(cfg, prompt: int, window: int, blocks=None) -> float:
             e["attn"][w].mul_(0.125)
         for w in ("wq", "wk", "wif") if "mlstm" in e else ():
             e["mlstm"][w].mul_(1 / 16)
-    p_cpu = _tree(p_gpu, lambda x: x.cpu())
+    p_cpu = tree_map(lambda x: x.cpu(), p_gpu)
     opts = T.ModelOptions(q_chunk=64, kv_chunk=64, ssm_chunk=64)
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab, (2, prompt), np.int64))
@@ -1007,12 +1052,6 @@ def check_against_cpu(cfg, prompt: int, window: int, blocks=None) -> float:
             lc, cc = T.decode_step(p_cpu, small, cc, token=nxt.cpu(),
                                    pos=prompt + t, opts=opts)
     return worst
-
-
-def _tree(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _tree(v, fn) for k, v in tree.items()}
-    return fn(tree)
 
 
 def init_params(name: str) -> dict:
@@ -1255,6 +1294,379 @@ def run_sweep_on_card() -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+# the training paths at published widths: batch, sequence, steps of the
+# main run through ``launch.train.train`` (hymba's 1536 > its window of
+# 1024, so the window bites), whether the run is under the port's
+# profiler (hymba's step traces to about 8000 ops a layer: the plain
+# recompute backward of its 36 attention block pairs and 24 scan chunks)
+TRAIN_PATHS = {"qwen2-1.5b": dict(batch=4, seq=512, steps=6, profile=True),
+               "hymba-1.5b": dict(batch=2, seq=1536, steps=3,
+                                  profile=False)}
+# forward launches of each kernel per layer and train step under the
+# default remat (``dots_no_batch``): the forward, and its recompute in the
+# backward (the policy saves matmul outputs only); the backward itself is
+# plain torch and launches no kernel of the port
+LAUNCHES_PER_LAYER = 2
+TRAIN_TIMED_STEPS = 2
+
+
+def _train_opts(seq: int):
+    from repro_torch.models import transformer as T
+    return T.ModelOptions(q_chunk=min(256, seq), kv_chunk=min(256, seq),
+                          ssm_chunk=64, loss_chunk=512)
+
+
+def _lm_batch(cfg, batch: int, seq: int, step: int = 0) -> dict:
+    """The synthetic pipeline's batch at ``step`` (seed 0) on the card."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.train import to_device
+    ds = SyntheticLM(cfg, ShapeConfig("train", seq, batch, "train"))
+    return to_device(ds.batch_at(step), "cuda")
+
+
+def check_kernel_grads() -> tuple:
+    """Each differentiable wrapper's forward and gradients on the card.
+    The forward (the Hopper kernel) is held against the plain version's on
+    the same bf16 inputs as ``check_kernels`` holds it (TOL and ROW_TOL by
+    row, STATE_TOL for h_final), at the qwen2 and hymba training shapes
+    (B = 4 and 2) and at windowed, ragged edges.  The gradients (the
+    plain recompute backward, which takes the saved inputs and not the
+    kernel's output) are held against the plain version's autograd with
+    the same cotangents: elementwise at TOL (STATE_TOL for the fp32
+    dlogdecay and dh0) and each tensor's max abs error within ROW_TOL of
+    its largest value (a row-wise check would divide by rows that are
+    zero in exact arithmetic, such as dq of a query that sees one key).
+    That checks the backward's wiring: the recompute's mask and window,
+    h0 given or None, the cotangent on h_final.  Under torch.profiler the
+    forward runs the port's kernel and the backward none of them.
+    Returns ({(training path or "edge", kernel): forward max abs error},
+    {kernel: gradient max abs error})."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as ss
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    fwd = {}
+    errs = {"flash_attention": 0.0, "ssm_scan": 0.0}
+
+    def grads(fn, ins, cots):
+        outs = fn(*ins)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        return [o.detach() for o in outs], torch.autograd.grad(
+            outs, [t for t in ins if t is not None], cots)
+
+    def forward(key, outs, want, tols):
+        torch.cuda.synchronize()
+        for i, (o, w, tol) in enumerate(zip(outs, want, tols)):
+            e, _ = _err(o, w.detach(), tol, rows=i == 0)
+            fwd[key] = max(fwd.get(key, 0.0), e)
+
+    def hold(name, got, want, tols):
+        torch.cuda.synchronize()
+        for g, w, tol in zip(got, want, tols):
+            torch.testing.assert_close(g.float(), w.float(), **tol)
+            err = float((g.float() - w.float()).abs().max())
+            if err > ROW_TOL * float(w.float().abs().max()):
+                raise AssertionError(f"{name} gradient: max abs error {err} "
+                                     f"over {ROW_TOL} of its largest value")
+            errs[name] = max(errs[name], err)
+
+    # (path, B, S, H, Hkv, D, window): qwen2's and hymba's training
+    # shapes, a window under a kv tile on ragged tiles, and G = 1 at D = 64
+    for path, b, s, h, hkv, d, window in [
+            ("qwen2-1.5b", 4, 512, 12, 2, 128, 0),
+            ("hymba-1.5b", 2, 1536, 25, 5, 64, 1024),
+            ("edge", 1, 300, 8, 2, 128, 40),
+            ("edge", 2, 200, 4, 4, 64, 48)]:
+        ins = [_randn(shape, gen).requires_grad_(True) for shape in
+               ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d))]
+        do = _randn((b, s, h, d), gen)
+        out, got = grads(lambda *a: ops.flash_attention(*a, window=window),
+                         ins, (do,))
+        want_out, want = grads(
+            lambda *a: fa.flash_attention_plain(*a, window=window), ins,
+            (do,))
+        forward((path, "flash_attention"), out, want_out, [TOL])
+        hold("flash_attention", got, want, [TOL] * 3)
+    # (path, B, S, nh, hd, st, chunk, h0): hymba's training shape (no h0)
+    # and with h0, a ragged S, unpadded rows (hd 120, st 50)
+    for path, b, s, nh, hd, st, chunk, with_h0 in [
+            ("hymba-1.5b", 2, 1536, 25, 64, 16, 64, False),
+            ("edge", 2, 1536, 25, 64, 16, 64, True),
+            ("edge", 2, 200, 3, 64, 16, 64, True),
+            ("edge", 1, 500, 2, 120, 50, 225, True)]:
+        xv, ld, Bm, Cm, h0 = _ssm_inputs(gen, b, s, nh, hd, st,
+                                         with_h0=with_h0)
+        ins = [t.requires_grad_(True) if t is not None else None
+               for t in (xv, ld, Bm, Cm, h0)]
+        cots = (_randn(xv.shape, gen), _randn((b, nh, hd, st), gen, 1.0,
+                                              torch.float32))
+        out, got = grads(lambda *a: ops.ssm_scan(*a, chunk), ins, cots)
+        want_out, want = grads(
+            lambda *a: ss.ssm_scan_plain(*a, chunk=chunk), ins, cots)
+        forward((path, "ssm_scan"), out, want_out, [TOL, STATE_TOL])
+        hold("ssm_scan", got, want,
+             [TOL, STATE_TOL, TOL, TOL, STATE_TOL][:len(got)])
+    # the forward runs the kernel, the backward none of the port's
+    q, k, v = (_randn((2, 512, 12 if i == 0 else 2, 128), gen)
+               .requires_grad_(True) for i in range(3))
+    xv, ld, Bm, Cm, _ = _ssm_inputs(gen, 2, 256, 4, 64, 16)
+    for t in (xv, ld, Bm, Cm):
+        t.requires_grad_(True)
+    outs = []
+    ran = [profiled_steps(fn, 1) for fn in (
+        lambda: outs.append(ops.flash_attention(q, k, v)),
+        lambda: outs[0].sum().backward(),
+        lambda: outs.append(ops.ssm_scan(xv, ld, Bm, Cm, None, 64)[0]),
+        lambda: outs[1].float().sum().backward())]
+    names = [set(r["port_kernels_ms"]) for r in ran]
+    if names[0] != {"flash_fwd_kernel"} or len(names[2]) != SSM_STEPS \
+            or names[1] or names[3] \
+            or not all(r["kernels_per_step"] for r in ran):
+        raise AssertionError(f"the port's kernels under torch.profiler: "
+                             f"flash forward, backward, SSD forward, "
+                             f"backward: {names}")
+    return fwd, errs
+
+
+def time_train_kernels(name: str) -> dict:
+    """Each kernel of one training path at its training shapes, as
+    ``time_kernels`` times the serving paths'.  Runs before any step is
+    profiled whole: after a window of a whole train step (about 16,000
+    device kernels), and once after the serving paths' step breakdowns,
+    torch.profiler on an "NVIDIA H100 80GB HBM3" at 700 W dropped one
+    record in every later window of 20 calls.  Returns {kernel:
+    times}."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import HYBRID
+    cfg = get_config(name)
+    b, seq = TRAIN_PATHS[name]["batch"], TRAIN_PATHS[name]["seq"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kernels = {"flash_attention": _timed(*_flash_fns(
+        gen, b, seq, h, hkv, d, cfg.window if HYBRID in cfg.blocks else 0))}
+    if HYBRID in cfg.blocks:
+        kernels["ssm_scan"] = _timed(*_ssm_fns(gen, b, seq, h, d,
+                                               cfg.ssm_state, 64))
+    return kernels
+
+
+def time_train(name: str) -> dict:
+    """A train step of one training path under torch.profiler, before any
+    profiled run (see ``time_path``): seeded full-width, full-depth
+    weights, the pipeline's first batch repeated, ``OptConfig(
+    warmup_steps=1)``; one warm-up step, ``TRAIN_TIMED_STEPS`` steps under
+    the profiler, one more.  The loss must fall over the four steps on
+    the repeated batch.  Returns {host wall ms, device busy ms, idle
+    share, tokens/s, device kernels per step, the port's kernels' ms and
+    share, top kernels, losses}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    cfg = get_config(name)
+    spec = TRAIN_PATHS[name]
+    b, seq = spec["batch"], spec["seq"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = T.init_params(gen, cfg)
+    state = adamw.init(params)
+    step = steps_mod.make_train_step(cfg, _train_opts(seq), adamw.OptConfig(
+        warmup_steps=1, total_steps=100))
+    batch = _lm_batch(cfg, b, seq)
+    losses = []
+
+    def one():
+        nonlocal params, state
+        params, state, m = step(params, state, batch)
+        losses.append(m["loss"])
+
+    one()
+    res = profiled_steps(one, TRAIN_TIMED_STEPS, top=6)
+    one()
+    losses = [float(x) for x in losses]
+    del params, state
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{name} train: losses on a repeated batch "
+                             f"{losses} (must be finite and fall)")
+    return dict(res, tokens_per_s=b * seq / res["wall_ms"] * 1e3,
+                port_kernels_share=sum(res["port_kernels_ms"].values())
+                / res["device_busy_ms"], losses=losses)
+
+
+def train_path(name: str) -> dict:
+    """The training main path: ``launch.train.train`` at full width and
+    depth, seeded weights, every kernel launch counter set to 0 just
+    before and read just after; the counts must be the remat policy's
+    (layers x steps x ``LAUNCHES_PER_LAYER`` for each kernel the layers
+    run) and every loss finite.  Under the port's profiler (qwen2): the
+    registered train step has one custom-call per launch of a step, and
+    the aggregated database (``build/chip_smoke/db/<model>-train``) has
+    PC samples under the train_step placeholder that reach a dot_general
+    leaf of flash_attention.cu.  Returns the run's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import HYBRID, ShapeConfig
+    from repro_torch.core import viewer
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    cfg = get_config(name)
+    spec = TRAIN_PATHS[name]
+    prof_dir = None
+    if spec["profile"]:
+        prof_dir = os.path.join(SCRATCH, "train", name)
+        shutil.rmtree(prof_dir, ignore_errors=True)
+    for kname in KERNELS:
+        getattr(ops, kname).launches = 0
+    t0 = time.monotonic()
+    _, hist, paths = train(cfg, ShapeConfig("train", spec["seq"],
+                                            spec["batch"], "train"),
+                           n_steps=spec["steps"], log_every=1,
+                           opts=_train_opts(spec["seq"]),
+                           profile_dir=prof_dir, device="cuda")
+    wall = time.monotonic() - t0
+    launches = {kname: getattr(ops, kname).launches for kname in KERNELS}
+    per_step = cfg.n_layers * LAUNCHES_PER_LAYER
+    want = {"flash_attention": per_step * spec["steps"], "flash_decode": 0,
+            "ssm_scan": per_step * spec["steps"]
+            if HYBRID in cfg.blocks else 0}
+    losses = [h["loss"] for h in hist]
+    print(f"train {name}: launches {json.dumps(launches)}, expected "
+          f"{json.dumps(want)} ({cfg.n_layers} layers x {spec['steps']} "
+          f"steps x {LAUNCHES_PER_LAYER}: forward + remat recompute); "
+          f"losses {losses}; wall {wall:.2f} s", flush=True)
+    if launches != want:
+        raise AssertionError(f"{name} train: launch counts {launches}, "
+                             f"expected {want}")
+    if len(losses) != spec["steps"] or not all(np.isfinite(losses)):
+        raise AssertionError(f"{name} train: losses {losses}")
+    out = dict(launches=launches, losses=losses, wall_s=wall)
+    if paths is None:
+        return out
+    with open(paths["measurement"]) as f:
+        measurement = json.load(f)
+    step = measurement["steps"]["train_step"]
+    if step["custom_calls"] != per_step:
+        raise AssertionError(f"{name} train step: {step['custom_calls']} "
+                             f"custom-calls bound, {per_step} launches a "
+                             f"step")
+    db = _database(paths, os.path.join(SCRATCH, "db", f"{name}-train"))
+    got = interior_samples(db).get("train_step", {})
+    k = got.get("kernels", {}).get("flash_attention")
+    if got.get("samples", 0) <= 0 or not k or k["dot_general"] <= 0 \
+            or not k["dot_lines"]:
+        raise AssertionError(f"{name} train: PC samples under train_step "
+                             f"{got.get('samples')}, flash interior {k}")
+    print(viewer.top_down(db, "gpu_inst/samples", max_depth=7,
+                          max_children=4), flush=True)
+    out.update(ops=step["ops"], custom_calls=step["custom_calls"],
+               export_s=step["seconds"], flops=step["flops"],
+               samples=got["samples"],
+               flash_samples=dict(samples=k["samples"],
+                                  dot_general=k["dot_general"],
+                                  dot_lines=sorted(k["dot_lines"])),
+               profiler=measurement["profiler"])
+    return out
+
+
+def check_train_against_cpu(name: str, seq: int, window: int) -> dict:
+    """One train step's loss and every gradient leaf of a 2-layer model at
+    full width (window layers at ``window``), kernels on the card against
+    the same bf16 weights on the CPU through the plain versions: the loss
+    within 2e-2 relative, each leaf's max abs error within 2e-2 of its
+    largest value, the serving check's bf16 tolerance; wq and wk
+    tempered by 1/8, as there (``check_against_cpu``).  Returns the
+    largest error ratio over the leaves."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves_with_paths, tree_map
+    small = dataclasses.replace(get_config(name), n_layers=2, window=window)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    p_gpu = T.init_params(gen, small)
+    for e in p_gpu["layers"].values():
+        for w in ("wq", "wk"):
+            e["attn"][w].mul_(0.125)
+    p_cpu = tree_map(lambda x: x.cpu(), p_gpu)
+    opts = _train_opts(seq)
+    batch = _lm_batch(small, 2, seq)
+    lg, _, gg = steps_mod._value_and_grad(small, opts, p_gpu, batch)
+    lc, _, gc = steps_mod._value_and_grad(
+        small, opts, p_cpu, {k: v.cpu() for k, v in batch.items()})
+    rel = abs(float(lg) - float(lc)) / abs(float(lc))
+    if not np.isfinite(float(lg)) or rel > 2e-2:
+        raise AssertionError(f"{name} 2-layer train: loss {float(lg)} on "
+                             f"the card, {float(lc)} on the CPU")
+    worst = {}
+    for (path, a), (_, b) in zip(leaves_with_paths(gg),
+                                 leaves_with_paths(gc)):
+        path = "/".join(path)
+        a, b = a.float().cpu(), b.float()
+        r = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        worst[path] = r
+        if not torch.isfinite(a).all() or r > 2e-2:
+            raise AssertionError(f"{name} 2-layer train: gradient {path}: "
+                                 f"max abs error {r:.4f} of its largest "
+                                 f"value")
+    return dict(loss_rel=rel, worst_leaf=max(worst, key=worst.get),
+                worst=max(worst.values()))
+
+
+def check_train_resume(name: str, seq: int, batch: int) -> dict:
+    """Checkpoint and resume through ``train``: 3 steps of a 2-layer
+    full-width model with a checkpoint after step 2 (``save(block=
+    False)``, as ``train`` saves) and at the end; the last checkpoint is
+    removed and a second ``train`` from a fresh seeded init resumes from
+    step 2.  Its first loss must be bitwise the uninterrupted run's third
+    (the forward on the card is deterministic; the backward's atomics,
+    the embedding's gradient, are not, so later steps may differ in the
+    last bits).  Returns both losses."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.train import train
+    small = dataclasses.replace(get_config(name), n_layers=2)
+    ckpt = os.path.join(SCRATCH, "ckpt", name)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(n_steps=3, log_every=1, ckpt_dir=ckpt, ckpt_every=2,
+              opts=_train_opts(seq), device="cuda")
+    shape = ShapeConfig("train", seq, batch, "train")
+    _, full, _ = train(small, shape, **kw)
+    shutil.rmtree(os.path.join(ckpt, "step_00000003"))
+    _, resumed, _ = train(small, shape, resume=True, **kw)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if [h["step"] for h in resumed] != [2] or \
+            resumed[0]["loss"] != full[2]["loss"]:
+        raise AssertionError(f"{name} resume: {resumed} against the "
+                             f"uninterrupted {full}")
+    return dict(uninterrupted=full[2]["loss"], resumed=resumed[0]["loss"])
+
+
+def training_phase(card: str) -> dict:
+    """Train both paths, the 2-layer CPU check and the resume; prints what
+    it measured with the card's name and power limit.  Returns {path:
+    train_path's result}."""
+    runs = {}
+    for name in TRAIN_PATHS:
+        runs[name] = train_path(name)
+        torch.cuda.empty_cache()
+        shown = {k: v for k, v in runs[name].items() if k != "profiler"}
+        print(f"train {name} ({card}): {json.dumps(shown)}; profiler "
+              f"{json.dumps(runs[name].get('profiler'))}", flush=True)
+    cpu = check_train_against_cpu("qwen2-1.5b", 64, 0)
+    print(f"qwen2-1.5b: 2-layer full-width train step (B=2, S=64) vs CPU "
+          f"bf16 plain: {json.dumps(cpu)}", flush=True)
+    res = check_train_resume("hymba-1.5b", 512, 2)
+    print(f"hymba-1.5b: 2-layer full-width resume from an async checkpoint: "
+          f"bitwise equal loss {json.dumps(res)}", flush=True)
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1272,14 +1684,31 @@ def main() -> int:
     errs, ratios = check_kernels()
     print(f"kernel checks passed: max abs err {errs}, largest row "
           f"err / row max {ratios}", flush=True)
+    train_errs, grad_errs = check_kernel_grads()
+    print(f"kernel forward checks at the training shapes passed: max abs "
+          f"err {json.dumps({'/'.join(k): v for k, v in train_errs.items()})}"
+          f"; gradient checks (the recompute's wiring) passed: max abs err "
+          f"{grad_errs}; the forward ran the port's kernels, the backward "
+          f"none", flush=True)
+    # every timing under torch.profiler before the first profiled run:
+    # the training kernels first, the windows of whole steps last
+    train_times = {}
+    for name in TRAIN_PATHS:
+        train_times[name] = time_train_kernels(name)
+        for kname, (t, calls) in train_times[name].items():
+            print(f"{name} train {kname}: device {json.dumps(t)}; "
+                  f"back-to-back call {json.dumps(calls)}", flush=True)
     names = list(PATHS) + list(SERVING_PATHS)
     params = {name: init_params(name) for name in names}
-    # every timing under torch.profiler before the first profiled serve
     times = {name: time_path(name, params[name]) for name in names}
+    for name in TRAIN_PATHS:
+        print(f"{name} train step ({card}): {json.dumps(time_train(name))}",
+              flush=True)
     runs = {name: serve_path(name, params.pop(name)) for name in PATHS}
     runs.update({name: serving_path(name, params.pop(name))
                  for name in SERVING_PATHS})
     run_sweep_on_card()
+    train_runs = training_phase(card)
 
     kernels = []
     for path, run in runs.items():
@@ -1288,6 +1717,14 @@ def main() -> int:
                 name=kname, path=path, route="cuda",
                 source=SOURCES[kname][0], replaces=SOURCES[kname][1],
                 launches=run["launches"][kname], max_abs_err=errs[kname],
+                **t))
+    for name, run in train_runs.items():
+        for kname, (t, _) in train_times[name].items():
+            kernels.append(dict(
+                name=kname, path=f"{name}:train", route="cuda",
+                source=SOURCES[kname][0], replaces=SOURCES[kname][1],
+                launches=run["launches"][kname],
+                max_abs_err=train_errs[(name, kname)],
                 **t))
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,10 @@
-"""Parameters from the JAX package into the port.
+"""Parameters and optimizer state from the JAX package into the port.
 
 ``params_from_jax`` takes the JAX package's parameter tree with every leaf
 already converted to numpy (``jax.tree.map(np.asarray, params)``), so this
 module needs no jax.  The tree layout is shared, so keys map one to one.
+``opt_state_from_jax`` does the same for the AdamW state, so a state
+resumed in both packages matches.
 """
 from __future__ import annotations
 
@@ -32,3 +34,14 @@ def params_from_jax(tree, device="cuda"):
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     return _leaf(tree, device)
+
+
+def opt_state_from_jax(state, device="cuda"):
+    """numpy copy of the JAX package's ``AdamState`` (``jax.tree.map(
+    np.asarray, opt_state)``: step, mu, nu) -> the port's
+    ``optim.adamw.AdamState`` on ``device`` (int32 step, fp32 moments)."""
+    from repro_torch.optim.adamw import AdamState
+    step, mu, nu = state
+    return AdamState(step=_leaf(step, device),
+                     mu=params_from_jax(mu, device),
+                     nu=params_from_jax(nu, device))

@@ -55,6 +55,9 @@ COPIES = (
     "fleet/__init__.py", "fleet/__main__.py", "fleet/cli.py",
     "fleet/client.py", "fleet/daemon.py", "fleet/envelope.py",
     "fleet/journal.py",
+    # the training data pipeline (numpy only: the seeded synthetic token
+    # stream and its prefetch thread)
+    "data/pipeline.py",
 )
 
 _IMPORT_RE = re.compile(r"^(\s*(?:from|import)\s+)repro(?=[.\s])", re.M)

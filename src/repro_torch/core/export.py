@@ -43,6 +43,10 @@ aggregation) runs unchanged:
 - **Loops.**  The port unrolls the layer loop in Python, so the module
   has one computation, no ``while``, and ``comp_multipliers`` is 1
   everywhere.
+- **Train step.**  ``torch.export`` traces forward only, so a train step
+  (forward, backward, optimizer) is traced by ``trace_train_step``
+  (``make_fx`` on fake tensors) and mapped by the same code
+  (``module_from_graph``).
 """
 from __future__ import annotations
 
@@ -275,14 +279,54 @@ def _chain(node, chains: Dict[torch.fx.Node, tuple]) -> tuple:
     return frames
 
 
+def trace_train_step(fn, args: Sequence) -> torch.fx.GraphModule:
+    """The aten graph of one whole train step ``fn(*args)`` (loss, its
+    backward through ``torch.autograd.grad``, the optimizer update), by
+    ``make_fx`` on fake tensors: nothing runs on the device and no kernel
+    launch is counted.  ``torch.export`` traces no backward, hence
+    ``make_fx``.  The kernels stay single nodes (their custom ops have no
+    decomposition), their recompute backward is traced as the aten ops it
+    runs, and the remat checkpoints' recompute is traced where the
+    backward runs it, so there is one kernel node per forward launch,
+    recompute included (``_eager_selective_checkpoint``).  Nodes carry
+    their model frames as in ``export_step``."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+    with _recording_model_frames(), _eager_selective_checkpoint():
+        return make_fx(fn, tracing_mode="fake")(*args)
+
+
+@contextlib.contextmanager
+def _eager_selective_checkpoint():
+    """While open, a selective checkpoint acts under a tracer as it does
+    eagerly: it keeps what its policy saves and recomputes the rest in the
+    backward, where the trace records the recompute.  Under a tracer torch
+    otherwise saves every op of the region and leaves the recompute to a
+    compiler's partitioner, so the graph would hold one kernel node per
+    layer where the card launches two.  torch decides that in
+    ``torch.utils.checkpoint._is_compiling``, which this replaces."""
+    import torch.utils.checkpoint as ckpt
+    real = ckpt._is_compiling
+    ckpt._is_compiling = lambda *args, **kwargs: False
+    try:
+        yield
+    finally:
+        ckpt._is_compiling = real
+
+
 def module_from_export(name: str, exported: torch.export.ExportedProgram
                        ) -> HloModule:
     """The ``HloModule`` of one exported serving step (see the module
-    docstring): one entry computation ``main`` holding an op per graph
-    node, in graph order."""
-    gm = exported.graph_module
+    docstring)."""
     constants = {s.arg.name for s in exported.graph_signature.input_specs
                  if s.kind.name in ("CONSTANT_TENSOR", "CUSTOM_OBJ")}
+    return module_from_graph(name, exported.graph_module, constants)
+
+
+def module_from_graph(name: str, gm: torch.fx.GraphModule,
+                      constants=frozenset()) -> HloModule:
+    """The ``HloModule`` of one traced step: one entry computation
+    ``main`` holding an op per graph node, in graph order; placeholders
+    named in ``constants`` become ``constant`` ops."""
     frames: Dict[int, StackFrame] = {}
     frame_ids: Dict[tuple, int] = {}
     chains: Dict[torch.fx.Node, tuple] = {}

@@ -1,10 +1,13 @@
-"""Selective SSM (Mamba-2 / SSD style): chunkwise-parallel prefill through
-the SSD-scan kernel and the O(1)-state recurrent decode step, forward only.
+"""Selective SSM (Mamba-2 / SSD style): chunkwise-parallel training and
+prefill, through the SSD-scan kernel or its plain version, and the
+O(1)-state recurrent decode step.
 
 Scalar-per-head decay (SSD formulation), so the chunkwise form is a masked
-linear-attention product; ``ssd_chunked`` is ``kernels.ops.ssm_scan``,
-which launches the Hopper kernel on CUDA tensors and runs its plain
-version on the CPU.
+linear-attention product.  ``ssd_chunked`` with ``use_kernel`` is
+``kernels.ops.ssm_scan``, which launches the Hopper kernel on CUDA tensors
+and runs its plain version on the CPU (differentiable either way, by a
+recompute backward); without it, ``ssm_scan_plain`` directly, as the JAX
+package's ``use_kernel`` routing.
 
 State convention: h[t] = exp(dt[t]*A) * h[t-1] + dt[t] * outer(x[t], B[t]);
 y[t] = h[t] @ C[t] + D * x[t], per head, with B/C shared across heads
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ssm_scan import ssm_scan_plain
 from repro_torch.models.layers import dense_init
 
 CONV_W = 4  # depthwise causal conv width
@@ -62,24 +66,32 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 
 def ssd_chunked(xv, logdecay, Bmat, Cmat, *, chunk: int,
-                h0: Optional[torch.Tensor] = None) -> tuple:
+                h0: Optional[torch.Tensor] = None,
+                use_kernel: bool = True) -> tuple:
     """Chunkwise-parallel scan: the SSD-scan kernel through
-    ``ops.ssm_scan``.  xv (B,S,nh,hd) with dt folded in, logdecay (B,S,nh)
-    (<= 0), Bmat/Cmat (B,S,st), h0 (B,nh,hd,st) or None.  Returns
-    (y (B,S,nh,hd), h_final fp32); the result does not depend on
-    ``chunk``, up to rounding."""
-    return ops.ssm_scan(xv, logdecay, Bmat, Cmat, h0, chunk)
+    ``ops.ssm_scan`` with ``use_kernel``, else its plain version, which
+    is for CPU tensors only: on the card the scan is the kernel.  xv
+    (B,S,nh,hd) with dt folded in, logdecay (B,S,nh) (<= 0), Bmat/Cmat
+    (B,S,st), h0 (B,nh,hd,st) or None.  Returns (y (B,S,nh,hd), h_final
+    fp32); the result does not depend on ``chunk``, up to rounding."""
+    if use_kernel:
+        return ops.ssm_scan(xv, logdecay, Bmat, Cmat, h0, chunk)
+    if xv.is_cuda:
+        raise ValueError("ssd_chunked: use_kernel=False runs the plain "
+                         "scan, which is for CPU tensors; on the card the "
+                         "scan is the SSD kernel")
+    return ssm_scan_plain(xv, logdecay, Bmat, Cmat, h0, chunk=chunk)
 
 
 def mamba_forward(params, x, *, n_heads: int, head_dim: int, state: int,
-                  chunk: int = 256, ssm_state=None, conv_state=None
-                  ) -> tuple:
+                  chunk: int = 256, ssm_state=None, conv_state=None,
+                  use_kernel: bool = True) -> tuple:
     """Full mamba mixer.  x: (B,S,d).  Returns (y, (ssm_state,
     conv_state)).
 
     For decode (S == 1) pass both states: the step is the O(1) recurrence
-    in plain torch.  For prefill leave them None: the scan runs through
-    ``ssd_chunked``.
+    in plain torch.  For prefill and training leave them None: the scan
+    runs through ``ssd_chunked`` (the kernel with ``use_kernel``).
     """
     B, S, d = x.shape
     inner = n_heads * head_dim
@@ -102,7 +114,7 @@ def mamba_forward(params, x, *, n_heads: int, head_dim: int, state: int,
         h_fin = h
     else:
         y, h_fin = ssd_chunked(xv, logdecay, Bmat, Cmat, chunk=chunk,
-                               h0=ssm_state)
+                               h0=ssm_state, use_kernel=use_kernel)
     y = y + params["D"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(B, S, inner) * F.silu(z)
     return y @ params["out_proj"], (h_fin, new_conv)

@@ -1,6 +1,7 @@
-"""Model assembly for serving (prefill and decode): embedding, a stack of
-blocks, final norm and unembedding.  Ported block kinds: ATTN (full causal
-GQA attention), SWA (sliding-window attention over a ring cache), HYBRID
+"""Model assembly for training (``forward``, ``lm_loss``, ``loss_fn``) and
+serving (``prefill``, ``decode_step``): embedding, a stack of blocks,
+final norm and unembedding.  Ported block kinds: ATTN (full causal GQA
+attention), SWA (sliding-window attention over a ring cache), HYBRID
 (Hymba: sliding-window attention and a mamba mixer in parallel on the
 same input, mixed by ``beta``), each followed by a dense SwiGLU or (ATTN
 and SWA with ``use_moe``) a mixture-of-experts FFN, and the xLSTM blocks
@@ -10,17 +11,21 @@ Layers are grouped into *periods* (one repetition of the block pattern)
 and parameters are stacked over periods, keeping the JAX package's
 parameter tree (``{"embed", "unembed", "final_norm", "layers": {"e0":
 ...}}``) so JAX-initialised weights load by key.  Where JAX scans over
-periods, this runs a Python loop.  MAMBA blocks, the expert-parallel MoE
-path and the training mode raise ``NotImplementedError`` until their
-slices land.
+periods, this runs a Python loop.  In training each period is one
+``torch.utils.checkpoint`` region (``ModelOptions.remat``), as the JAX
+package's remat of the scan body.  MAMBA blocks and the expert-parallel
+MoE path raise ``NotImplementedError`` until their slices land.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import (ATTN, HYBRID, MLSTM, SLSTM, SWA,
                                       ModelConfig)
@@ -29,7 +34,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import dense_init, rms_norm, swiglu
+from repro_torch.models.layers import (dense_init, pick_chunk, rms_norm,
+                                      swiglu)
 
 
 class EntrySpec(NamedTuple):
@@ -39,12 +45,25 @@ class EntrySpec(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class ModelOptions:
-    """Build-time knobs: the attention and SSD-scan (and mLSTM) chunk
-    sizes, and the sLSTM's timesteps per block."""
+    """Build-time knobs, the JAX package's: remat of each period in
+    training and its policy, the attention and SSD-scan (and mLSTM) chunk
+    sizes, the sLSTM's timesteps per block, the attention schedule of the
+    plain path, the kernel routing and the loss's sequence chunk."""
+    remat: bool = True
+    remat_policy: str = "dots_no_batch"   # dots_no_batch | nothing | everything
     q_chunk: int = 512
     kv_chunk: int = 512
     ssm_chunk: int = 256
-    slstm_block: int = 16
+    slstm_block: int = 16         # sLSTM timesteps per block
+    attn_schedule: str = "dense"          # dense | binary
+    # the hand-written kernels in training attention and in the mamba
+    # mixer: on the card they are the port's main path (the JAX package
+    # defaults to False: its Pallas kernels are for the TPU); on the CPU
+    # the ops run their plain versions.  False routes around the ops to
+    # the plain schedules (``attn_schedule``), on the CPU only: on CUDA
+    # tensors it raises
+    use_flash_kernel: bool = True
+    loss_chunk: int = 512
 
 
 def layer_plan(cfg: ModelConfig) -> Tuple[Tuple[EntrySpec, ...], int]:
@@ -206,25 +225,30 @@ def _write_states(cache, new: dict):
 
 def _apply_entry(p, spec: EntrySpec, x, positions, cfg, opts, mode: str,
                  cache=None, cache_pos=None):
-    """One block.  Returns (x, new_cache).  In decode every state (k/v,
+    """One block.  Returns (x, new_cache, aux): aux is the MoE aux loss
+    (zero elsewhere: 0.0 for the xLSTM blocks, which have no FFN); in
+    training new_cache is None.  In decode every state (k/v,
     ``ssm``/``conv``, the xLSTM states) is written into ``cache`` in
     place."""
     _check_entry(spec)
     h = rms_norm(x, p["ln1"])
     decode = mode == "decode"
+    train = mode == "train"
     if spec.kind == MLSTM:
         y, (H, m) = xlstm_mod.mlstm_forward(
             p["mlstm"], h, n_heads=cfg.n_heads, dqk=cfg.head_dim,
             chunk=opts.ssm_chunk,
             state=(cache["H"], cache["m"]) if decode else None)
-        new = {"H": H, "m": m}
-        return x + y, _write_states(cache, new) if decode else new
+        new = None if train else {"H": H, "m": m}
+        return x + y, _write_states(cache, new) if decode else new, 0.0
     if spec.kind == SLSTM:
         y, new = xlstm_mod.slstm_forward(
             p["slstm"], h, n_heads=cfg.n_heads,
             state={k: cache[k] for k in ("c", "n", "h", "m")}
             if decode else None, time_block=opts.slstm_block)
-        return x + y, _write_states(cache, new) if decode else new
+        if train:
+            new = None
+        return x + y, _write_states(cache, new) if decode else new, 0.0
     window = cfg.window if spec.kind in (SWA, HYBRID) else 0
     y, new_cache = _attention(p["attn"], h, positions, cfg, window, opts,
                               mode, cache, cache_pos)
@@ -235,20 +259,27 @@ def _apply_entry(p, spec: EntrySpec, x, positions, cfg, opts, mode: str,
         ym, (st, cv) = ssm_mod.mamba_forward(
             p["mamba"], h, n_heads=cfg.n_heads, head_dim=cfg.head_dim,
             state=cfg.ssm_state, chunk=opts.ssm_chunk, ssm_state=ssm_state,
-            conv_state=conv_state)
+            conv_state=conv_state, use_kernel=opts.use_flash_kernel)
         if decode:
             _write_states(cache, {"ssm": st, "conv": cv})
-        else:
+        elif not train:
             new_cache.update(ssm=st, conv=cv)
         beta = p["beta"].to(x.dtype)
         y = 0.5 * (beta[0] * y + beta[1] * ym)
     x = x + y
-    y2, _ = _apply_ffn(p, rms_norm(x, p["ln2"]), cfg)
-    return x + y2, new_cache
+    y2, aux = _apply_ffn(p, rms_norm(x, p["ln2"]), cfg)
+    return x + y2, new_cache, aux
 
 
 def _attention(ap, h, positions, cfg, window, opts, mode, cache, cache_pos):
-    """Attention sub-block, prefill or decode.  Returns (y, cache)."""
+    """Attention sub-block across the three modes.  Returns (y, cache);
+    training returns no cache."""
+    if mode == "train":
+        y, _ = attn_mod.attention_block(
+            ap, h, positions, cfg, layer_window=window, q_chunk=opts.q_chunk,
+            kv_chunk=opts.kv_chunk, schedule=opts.attn_schedule,
+            use_kernel=opts.use_flash_kernel)
+        return y, None
     if mode == "prefill":
         # build the cache from scratch; attention runs the flash kernel
         # (causal, q_offset 0, S == Sk, the layer's window)
@@ -269,7 +300,8 @@ def _attention(ap, h, positions, cfg, window, opts, mode, cache, cache_pos):
     y, kv = attn_mod.attention_block(
         ap, h, positions, cfg, layer_window=window,
         kv_cache=(cache["k"], cache["v"]), cache_pos=cache_pos,
-        q_chunk=opts.q_chunk, kv_chunk=opts.kv_chunk)
+        q_chunk=opts.q_chunk, kv_chunk=opts.kv_chunk,
+        schedule=opts.attn_schedule)
     return y, {"k": kv[0], "v": kv[1]}
 
 
@@ -307,8 +339,9 @@ def _stack_forward(params, x, cfg, opts, mode, cache=None, cache_pos=None,
         for i, spec in enumerate(entries):
             ename = f"e{i}"
             c = _index(cache[ename], p) if cache is not None else None
-            x, nc = _apply_entry(layer_p[ename], spec, x, positions, cfg,
-                                 opts, mode, cache=c, cache_pos=cache_pos)
+            x, nc, _ = _apply_entry(layer_p[ename], spec, x, positions,
+                                    cfg, opts, mode, cache=c,
+                                    cache_pos=cache_pos)
             built[ename].append(nc)
     if mode == "decode":
         return x, cache
@@ -316,6 +349,106 @@ def _stack_forward(params, x, cfg, opts, mode, cache=None, cache_pos=None,
                      for key in ncs[0]}
                  for e, ncs in built.items()}
     return x, new_cache
+
+
+# the products saved by the ``dots_no_batch`` policy: matmuls with no
+# batch dimension (``x @ W`` reaches aten as ``mm``), the counterpart of
+# jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims; every other
+# op of a period, the kernels included, is recomputed in the backward
+_SAVED_DOTS = frozenset({torch.ops.aten.mm.default,
+                         torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _period(layer_p, x, positions, cfg, opts, entries):
+    """One period of the stack in training.  Returns (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, spec in enumerate(entries):
+        x, _, a = _apply_entry(layer_p[f"e{i}"], spec, x, positions, cfg,
+                               opts, "train")
+        aux = aux + a
+    return x, aux
+
+
+def _train_stack(params, x, cfg, opts, positions):
+    """The periods in order, each one checkpointed with ``opts.remat``:
+    ``nothing`` saves only the period's inputs, ``dots_no_batch`` also
+    the outputs of its matmuls, ``everything`` saves all (no recompute,
+    as without remat).  Returns (x, aux summed over layers)."""
+    entries, n_periods = layer_plan(cfg)
+    kw = None
+    if opts.remat and opts.remat_policy != "everything":
+        kw = dict(use_reentrant=False)
+        if opts.remat_policy == "dots_no_batch":
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_dots)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in range(n_periods):
+        args = (_index(params["layers"], p), x, positions, cfg, opts,
+                entries)
+        x, a = (checkpoint(_period, *args, **kw) if kw is not None
+                else _period(*args))
+        aux = aux + a
+    return x, aux
+
+
+def forward(params, cfg: ModelConfig, tokens=None, embeds=None, *,
+            opts: ModelOptions = ModelOptions()):
+    """Training forward.  Returns (hidden (B,S,d) after the final norm,
+    aux: the MoE aux loss summed over layers, fp32)."""
+    x = embed_inputs(params, cfg, tokens, embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, aux = _train_stack(params, x, cfg, opts, positions)
+    return rms_norm(x, params["final_norm"]), aux
+
+
+def _chunk_loss(h, lab, unembed, z_loss: float):
+    """(sum of nll + z-loss, label count) of one sequence chunk."""
+    logits = (h @ unembed).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    # gather the label's logit (no one-hot product: no second (B, c, V)
+    # fp32 temporary)
+    lab_logit = torch.gather(logits, -1,
+                             lab.clamp(min=0).long()[..., None])[..., 0]
+    mask = (lab >= 0).float()
+    nll = (lse - lab_logit) * mask
+    zl = z_loss * lse.square() * mask
+    return (nll + zl).sum(), mask.sum()
+
+
+def lm_loss(params, cfg: ModelConfig, hidden, labels, *,
+            opts: ModelOptions = ModelOptions(), z_loss: float = 1e-4):
+    """Chunked cross-entropy over the unembedding.  labels: (B,S) integer,
+    positions with label < 0 are masked.  Each chunk of ``loss_chunk``
+    positions is a checkpoint region, so its (B, chunk, V) fp32 logits
+    are recomputed in the backward, not kept.  Returns (loss summed over
+    the tokens, n_tokens), fp32."""
+    S = hidden.shape[1]
+    c = pick_chunk(S, opts.loss_chunk)
+    loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    ntok = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(S // c):
+        l_i, n_i = checkpoint(_chunk_loss, hidden[:, i * c:(i + 1) * c],
+                              labels[:, i * c:(i + 1) * c],
+                              params["unembed"], z_loss, use_reentrant=False)
+        loss = loss + l_i
+        ntok = ntok + n_i
+    return loss, ntok
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *,
+            opts: ModelOptions = ModelOptions()):
+    """Scalar mean LM loss + 0.01 x the MoE aux.  batch: dict(tokens?,
+    embeds?, labels).  Returns (total, {"nll", "aux", "ntok"})."""
+    hidden, aux = forward(params, cfg, batch.get("tokens"),
+                          batch.get("embeds"), opts=opts)
+    loss, ntok = lm_loss(params, cfg, hidden, batch["labels"], opts=opts)
+    nll = loss / torch.clamp(ntok, min=1.0)
+    return nll + 0.01 * aux, {"nll": nll, "aux": aux, "ntok": ntok}
 
 
 def _unembed_last(params, x):
