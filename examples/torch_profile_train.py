@@ -13,7 +13,9 @@ one H100.  Either way the workflow is the same: the whole train step
 registered with the kernels' interiors bound, every step's dispatch is
 timed, PC samples are attributed below it and into the kernels'
 interiors, a checkpoint is written, and the post-mortem prints where a
-train step's time went, top-down and flat, in full calling context.
+train step's time went: by phase (the named scopes ``fwd_bwd``,
+``grad_compression``, ``optimizer`` under the ``train_step``
+placeholder), then top-down and flat, in full calling context.
 """
 import argparse
 import json
@@ -24,7 +26,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.core import viewer
+from repro_torch.core import scope, viewer
 from repro_torch.core.aggregate import aggregate
 from repro_torch.launch.train import train
 from repro_torch.models import transformer as T
@@ -70,6 +72,8 @@ def main(argv=None):
     profiles = sorted(v for k, v in paths.items()
                       if k.startswith(("cpu_", "gpu_")) and "trace" not in k)
     db = aggregate(profiles, os.path.join(out, "db"))
+    shares = {k: round(v, 4) for k, v in scope.shares(db).items() if v}
+    print(f"PC samples under train_step by phase: {shares}")
     print()
     print(viewer.top_down(db, "gpu_inst/samples", max_depth=8,
                           max_children=4))

@@ -32,7 +32,15 @@ aggregation) runs unchanged:
   only ``forward`` frames in a node's ``stack_trace`` in some versions,
   so ``export_step`` writes the full chain of model frames into each
   node's ``stack_trace`` as the node is created.  A node without one
-  takes its nearest traced producer's chain; no node is dropped.
+  takes its nearest traced producer's chain within its own scope; no
+  node is dropped.
+- **Named scopes.**  The names of the ``core.scope.named_scope`` scopes
+  open when a node is created (a train step's ``fwd_bwd``,
+  ``grad_compression``, ``optimizer``) are its chain's outermost
+  elements, ahead of its frames: ``train_step/optimizer/mul``,
+  ``train_step/fwd_bwd/_train_stack/.../mm``, as the reference's
+  ``jax.named_scope`` names lead its ``op_name``.  A node created outside
+  any scope has none.
 - **Costs.**  FLOPs of a product come from ``torch.utils.flop_counter``
   (its registry, reached through torch's own decomposition of
   ``matmul``/``einsum`` into ``mm``/``bmm``), run on meta tensors of the
@@ -58,6 +66,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import scope
 from repro_torch.core.structure import (Computation, HloModule, HloOp,
                                         StackFrame)
 
@@ -166,24 +175,30 @@ def _model_frames(frame, in_scope: Dict[object, bool]
 def _recording_model_frames():
     """While open, every graph node created by the tracer gets the chain
     of model frames live at its creation as its ``stack_trace`` (in
-    ``traceback`` format), before the tracer's own filter runs.  The hook
-    is on ``torch.fx.Graph`` itself, so it is process-wide while open:
-    one export at a time."""
+    ``traceback`` format), before the tracer's own filter runs, and the
+    names of the open named scopes as ``meta["scope"]``; the scopes open
+    no profiler range meanwhile (``scope.no_ranges``).  The hook is on
+    ``torch.fx.Graph`` itself, so it is process-wide while open: one
+    export at a time."""
     create = torch.fx.Graph.create_node
     in_scope: Dict[object, bool] = {}
 
     def create_node(graph, *args, **kwargs):
         node = create(graph, *args, **kwargs)
-        if node.op == "call_function" and not node.meta.get("stack_trace"):
-            frames = _model_frames(sys._getframe(1), in_scope)
-            if frames:
-                node.meta["stack_trace"] = "\n".join(
-                    f'  File "{f}", line {n}, in {fn}' for f, n, fn in frames)
+        if node.op == "call_function":
+            node.meta["scope"] = scope.active()
+            if not node.meta.get("stack_trace"):
+                frames = _model_frames(sys._getframe(1), in_scope)
+                if frames:
+                    node.meta["stack_trace"] = "\n".join(
+                        f'  File "{f}", line {n}, in {fn}'
+                        for f, n, fn in frames)
         return node
 
     torch.fx.Graph.create_node = create_node
     try:
-        yield
+        with scope.no_ranges():
+            yield
     finally:
         torch.fx.Graph.create_node = create
 
@@ -255,18 +270,21 @@ def _flops(target, node) -> float:
 
 
 def _chain(node, chains: Dict[torch.fx.Node, tuple]) -> tuple:
-    """The node's model frames, or its nearest traced producer's."""
+    """The node's model frames, or its nearest traced producer's among
+    the producers in its own scope (an update's ops take no frames from
+    the backward that made their gradients)."""
     if node in chains:
         return chains[node]
     frames = tuple((f, int(n), fn) for f, n, fn in
                    _FRAME_RE.findall(node.meta.get("stack_trace") or ""))
     frames = tuple(fr for fr in frames if any(d in fr[0] for d in SCOPE_DIRS))
     if not frames:
+        own = node.meta.get("scope", ())
         todo, seen = list(node.all_input_nodes), set()
         while todo and not frames:
             nxt = []
             for p in todo:
-                if p in seen:
+                if p in seen or p.meta.get("scope", ()) != own:
                     continue
                 seen.add(p)
                 got = chains.get(p)
@@ -380,7 +398,8 @@ def module_from_graph(name: str, gm: torch.fx.GraphModule,
             nbytes = float(sum(_nbytes(t) for t in ins) + out_bytes)
         op_name = ""
         if node.op == "call_function":
-            op_name = "/".join([name] + [fn for _, _, fn in chain] + [leaf])
+            op_name = "/".join([name, *node.meta.get("scope", ())]
+                               + [fn for _, _, fn in chain] + [leaf])
         op = HloOp(name=node.name, opcode=opcode, comp="main",
                    type_str=_type_str(outs) if outs else "()",
                    out_elems=sum(t.numel() for t in outs),

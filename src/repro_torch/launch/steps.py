@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.scope import named_scope
 from repro_torch.distributed import compression as comp_mod
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
@@ -36,18 +37,28 @@ def make_train_step(cfg: ModelConfig, opts: T.ModelOptions,
     ``n_microbatches`` > 1 the batch is split along its first axis and the
     gradients are accumulated in fp32 over the microbatches (activations
     scale with B / n_microbatches); loss and metrics are their means,
-    ``ntok`` their sum."""
+    ``ntok`` their sum.
+
+    The phases run under the JAX package's named scopes
+    (``core.scope``): the loss and its gradients under ``fwd_bwd``
+    (``fwd_bwd_micro`` per microbatch; the backward's ops are made inside
+    ``torch.autograd.grad``, so they are in it too), the wire model under
+    ``grad_compression`` and the update under ``optimizer``.  The split
+    into microbatches, the fp32 accumulation and the division by n are
+    in none, as in the reference."""
 
     def finish(params, opt_state, loss, metrics, grads):
         if grad_compression:
-            grads = comp_mod.ef_compress_tree(grads)
-        with torch.no_grad():
+            with named_scope("grad_compression"):
+                grads = comp_mod.ef_compress_tree(grads)
+        with named_scope("optimizer"), torch.no_grad():
             new_p, new_o, om = adamw.update(opt_cfg, grads, opt_state,
                                             params)
         return new_p, new_o, {"loss": loss, **metrics, **om}
 
     def train_step(params, opt_state, batch):
-        loss, metrics, grads = _value_and_grad(cfg, opts, params, batch)
+        with named_scope("fwd_bwd"):
+            loss, metrics, grads = _value_and_grad(cfg, opts, params, batch)
         return finish(params, opt_state, loss, metrics, grads)
 
     def train_step_micro(params, opt_state, batch):
@@ -56,7 +67,8 @@ def make_train_step(cfg: ModelConfig, opts: T.ModelOptions,
         for i in range(n):
             mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
                   for k, v in batch.items()}
-            loss, metrics, g = _value_and_grad(cfg, opts, params, mb)
+            with named_scope("fwd_bwd_micro"):
+                loss, metrics, g = _value_and_grad(cfg, opts, params, mb)
             g = tree_map(lambda x: x.float(), g)
             if gsum is None:
                 gsum, loss_sum, aux = g, loss, metrics

@@ -17,7 +17,11 @@ their CUDA source at the step's shapes are bound to its ``custom-call``
 ops and the module is registered; every step is then dispatched under
 ``Profiler.dispatch("kernel", "train_step")`` and ends in a synchronize
 inside the dispatch, so the profile's times are device times, and PC
-samples descend into the kernels.
+samples descend into the kernels.  The step's phases carry the JAX
+package's named scopes (``steps.make_train_step``), so the database's
+top-down view under the ``train_step`` placeholder splits into
+``fwd_bwd`` (``fwd_bwd_micro``), ``grad_compression`` and
+``optimizer``; torch.profiler sees the same names as ranges.
 
 Runs on the card unless the caller asks for the CPU (``device="cpu"``,
 as the tests do); there is no CPU fallback.  Meshes, sharding and elastic
@@ -174,11 +178,14 @@ def register_train_step(prof, cfg: ModelConfig, opts: T.ModelOptions,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="qwen2-1.5b",
-                    help="model config (default qwen2-1.5b; the JAX "
-                         "package's default, xlstm-125m, runs no kernel, "
-                         "and its training in the port waits for a later "
-                         "slice)")
+    ap.add_argument("--arch", default="xlstm-125m",
+                    help="model config (default xlstm-125m, as in the JAX "
+                         "package; it runs none of the port's kernels: "
+                         "the reference has none for the mLSTM and "
+                         "sLSTM. qwen2-1.5b, hymba-1.5b and "
+                         "granite-moe-1b-a400m train through the flash "
+                         "prefill kernel, hymba also through the SSD "
+                         "scan)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--batch", type=int, default=4)

@@ -1,5 +1,8 @@
 """xLSTM blocks (arXiv:2405.04517): mLSTM (matrix memory, chunkwise
-parallel) and sLSTM (scalar memory, sequential recurrence), forward only.
+parallel) and sLSTM (scalar memory, sequential recurrence).  Training
+differentiates both with autograd, as the JAX package differentiates its
+own (no custom gradient for either); under remat the sLSTM's time loop
+runs again in the backward.
 
 mLSTM cell:  C_t = f_t C_{t-1} + i_t v_t k_t^T ;  n_t = f_t n_{t-1} + i_t k_t
              h_t = (C_t q_t) / max(|n_t . q_t|, exp(-m_t))

@@ -2,7 +2,8 @@
 same numpy inputs and the same JAX-initialised weights: the gradients of
 the two kernel wrappers (against the Pallas kernels' custom VJPs in
 interpret mode, as tests/test_kernels.py runs them), ``loss_fn`` and its
-gradients for reduced qwen2 and hymba, and ``train()`` itself.
+gradients for reduced qwen2, hymba, xlstm and granite-moe, and ``train()``
+itself.
 
 On the CPU the wrappers run their plain versions through the custom ops
 and their registered backward; on the card the forward is the Hopper
@@ -56,6 +57,16 @@ def draws(seed, shapes):
     return [(rng.standard_normal(s)).astype(np.float32) for s in shapes]
 
 
+def jax_vjp(fn, ins, cot):
+    """(fn(*ins), the vjp of ``cot``), compiled whole by ``jax.jit``: an
+    interpret-mode Pallas kernel dispatched op by op takes about 6x as
+    long on the CPU, and the values agree to float32 rounding."""
+    def both(*a):
+        out, vjp = jax.vjp(fn, *a)
+        return out, vjp(cot)
+    return jax.jit(both)(*map(jnp.asarray, ins))
+
+
 # ---------------------------------------------------------------------------
 # kernel gradients
 # ---------------------------------------------------------------------------
@@ -78,9 +89,8 @@ def test_flash_attention_grad_vs_pallas_vjp(B, S, H, Hkv, D, bq, bk, window):
     each gradient's largest value."""
     q, k, v, do = draws(0, [(B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D),
                             (B, S, H, D)])
-    out, vjp = jax.vjp(lambda *a: jops.flash_attention(
-        *a, True, window, bq, bk), *map(jnp.asarray, (q, k, v)))
-    want = vjp(jnp.asarray(do))
+    out, want = jax_vjp(lambda *a: jops.flash_attention(
+        *a, True, window, bq, bk), (q, k, v), jnp.asarray(do))
     tq, tk, tv = (torch.from_numpy(a).requires_grad_(True)
                   for a in (q, k, v))
     ops.flash_attention.launches = 0
@@ -120,8 +130,7 @@ def test_ssm_scan_grad_vs_pallas_vjp(B, S, nh, hd, st, chunk, with_h0):
     def jfn(*a):
         return jops.ssm_scan(*a[:4], a[4] if with_h0 else None, chunk)
 
-    _, vjp = jax.vjp(jfn, *map(jnp.asarray, ins))
-    want = vjp((jnp.asarray(dy), jnp.asarray(dh)))
+    _, want = jax_vjp(jfn, ins, (jnp.asarray(dy), jnp.asarray(dh)))
     tins = [torch.from_numpy(a).requires_grad_(True) for a in ins]
     y, h = ops.ssm_scan(*tins[:4], tins[4] if with_h0 else None, chunk)
     got = torch.autograd.grad((y, h), tins,
@@ -216,11 +225,42 @@ VARIANTS = {   # the port's options; the JAX side runs its plain path
     "plain-binary": dict(use_flash_kernel=False, attn_schedule="binary"),
     "kernel-remat-nothing": dict(remat_policy="nothing"),
 }
+# the variants run for each model: xlstm has no attention (the kernel
+# routing and the schedule change nothing there) and granite-moe's
+# attention is qwen2's at another width, so both run remat on and off
+MODEL_VARIANTS = {**{m: tuple(VARIANTS) for m in MODELS},
+                  "xlstm-125m": ("kernel-remat", "kernel-no-remat"),
+                  "granite-moe-1b-a400m": ("kernel-remat", "kernel-no-remat")}
+
+
+def chunks(name):
+    """Both packages' options for ``name``: xlstm's sLSTM takes 1 timestep
+    per scan iteration (the JAX package unrolls a block's timesteps, and
+    its compile time grows with the block; the port's blocking changes no
+    result)."""
+    return dict(CHUNKS, slstm_block=1) if name == "xlstm-125m" else CHUNKS
 
 
 def configs(name, dtype):
     return (dataclasses.replace(get_config(name).reduced(), dtype=dtype),
             dataclasses.replace(jax_get_config(name).reduced(), dtype=dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_init(name, dtype="float32"):
+    """The JAX package's seed-0 params of reduced ``name`` in ``dtype``, as
+    numpy, drawn once: ``dense_init`` draws in f32 and casts, so the bf16
+    init is the f32 one cast leaf by leaf to the dtypes the bf16 config
+    gives its leaves (bitwise the JAX package's own bf16 init for all
+    four models)."""
+    _, jcfg = configs(name, dtype)
+    if dtype == "float32":
+        return jax.tree.map(np.asarray,
+                            JT.init_params(jax.random.PRNGKey(0), jcfg))
+    shapes = jax.eval_shape(lambda k: JT.init_params(k, jcfg),
+                            jax.random.PRNGKey(0))
+    return jax.tree.map(lambda x, s: x.astype(s.dtype), jax_init(name),
+                        shapes)
 
 
 def lm_batch(vocab, B=2, S=64, seed=4):
@@ -229,6 +269,18 @@ def lm_batch(vocab, B=2, S=64, seed=4):
     labels = rng.integers(0, vocab, (B, S), np.int32)
     labels[0, :5] = -100                         # masked positions
     return toks, labels
+
+
+def temper(jp):
+    """Scale the attention's wq and wk and the mLSTM's wq, wk and wif by
+    1/8, in place (see ``jax_loss_and_grads``)."""
+    for e in jp["layers"].values():
+        for block, names in (("attn", ("wq", "wk")),
+                             ("mlstm", ("wq", "wk", "wif"))):
+            for w in names if block in e else ():
+                e[block][w] = (e[block][w].astype(jnp.float32) / 8
+                               ).astype(e[block][w].dtype)
+    return jp
 
 
 @functools.lru_cache(maxsize=None)
@@ -240,19 +292,22 @@ def jax_loss_and_grads(name, dtype):
     init takes their fan-in from the head axis, which makes the softmax
     near one-hot, and there bf16 rounding alone moves the JAX package's
     own gradients 17-77% of their largest value away from its f32 ones;
-    tempered, 1-3% (beta aside, see ``bf16_tolerance``)."""
+    tempered, 1-3% (beta aside, see ``bf16_tolerance``).  The mLSTM's wq,
+    wk and wif are tempered likewise (scripts/xlstm_conditioning.py: the
+    untempered init is chaotic in bf16)."""
     _, jcfg = configs(name, dtype)
-    jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
-    for e in jp["layers"].values():
-        for w in ("wq", "wk"):
-            e["attn"][w] = (e["attn"][w].astype(jnp.float32) / 8).astype(
-                e["attn"][w].dtype)
+    jp = temper(jax.tree.map(jnp.asarray, jax_init(name, dtype)))
     toks, labels = lm_batch(jcfg.vocab)
-    (loss, metrics), grads = jax.value_and_grad(
+    grad_fn = jax.value_and_grad(
         lambda p: JT.loss_fn(p, jcfg, {"tokens": jnp.asarray(toks),
                                        "labels": jnp.asarray(labels)},
-                             opts=JT.ModelOptions(**CHUNKS)),
-        has_aux=True)(jp)
+                             opts=JT.ModelOptions(**chunks(name))),
+        has_aux=True)
+    if name not in MODELS:
+        # compiled whole: the xLSTM's and MoE's op-by-op dispatch costs
+        # more than their compile
+        grad_fn = jax.jit(grad_fn)
+    (loss, metrics), grads = grad_fn(jp)
     np_tree = functools.partial(jax.tree.map, np.asarray)
     return (float(loss), np_tree(metrics), np_tree(grads), np_tree(jp))
 
@@ -272,27 +327,59 @@ def bf16_tolerance(name, path):
     return max(2e-2, 1.5 * np.abs(a - b).max() / np.abs(b).max())
 
 
-@pytest.mark.parametrize("variant", VARIANTS)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", MODELS)
-def test_loss_fn_and_grads_vs_jax(name, dtype, variant):
+def distinct_router_logits(monkeypatch):
+    """Make every MoE FFN of the port check, as it routes, that no two
+    router logits of a token are equal: ``torch.topk`` and
+    ``jax.lax.top_k`` may break a tie differently, so the seeded inputs
+    of these tests are drawn to have none, and a tie fails here, not as a
+    gradient off by a whole expert.  Returns the number of FFN calls."""
+    from repro_torch.models import moe as moe_mod
+    real, calls = moe_mod._local_moe, [0]
+
+    def checked(x, wr, *args, **kwargs):
+        logits = torch.sort(x.detach().float() @ wr.detach(), dim=-1)[0]
+        assert (logits[:, 1:] > logits[:, :-1]).all(), \
+            "two router logits of a token are equal"
+        calls[0] += 1
+        return real(x, wr, *args, **kwargs)
+    monkeypatch.setattr(moe_mod, "_local_moe", checked)
+    return calls
+
+
+@pytest.mark.parametrize("name,dtype,variant", [
+    (name, dtype, variant) for name, variants in MODEL_VARIANTS.items()
+    for dtype in ("float32", "bfloat16") for variant in variants])
+def test_loss_fn_and_grads_vs_jax(name, dtype, variant, monkeypatch):
     """f32: the loss within 1e-5 relative, every gradient leaf within 1e-4
     of its largest value.  bf16: the loss within 2e-2 relative, every
     gradient leaf at ``bf16_tolerance`` (XLA fuses bf16 elementwise chains
     in f32 and rounds once, PyTorch rounds after every op).  The port's
     remat (selective checkpoint), kernel routing and binary schedule
-    change nothing but the rounding."""
+    change nothing but the rounding.  xlstm runs the mLSTM and the sLSTM
+    loop under autograd, recomputed in the backward under remat;
+    granite-moe the router, the capacity drops and the aux loss (0.01 x,
+    in the loss), its routing recomputed under remat."""
     cfg, _ = configs(name, dtype)
     jloss, jmetrics, jgrads, jp = jax_loss_and_grads(name, dtype)
     params = params_from_jax(jp, "cpu")
     toks, labels = lm_batch(cfg.vocab)
-    opts = T.ModelOptions(**CHUNKS, **VARIANTS[variant])
+    opts = T.ModelOptions(**chunks(name), **VARIANTS[variant])
+    routed = distinct_router_logits(monkeypatch)
     loss, metrics, grads = steps._value_and_grad(
         cfg, opts, params, {"tokens": torch.from_numpy(toks).long(),
                             "labels": torch.from_numpy(labels)})
     frac = 1e-5 if dtype == "float32" else 2e-2
     assert abs(float(loss) - jloss) <= frac * abs(jloss), (float(loss), jloss)
     assert float(metrics["ntok"]) == float(jmetrics["ntok"]) == 2 * 64 - 5
+    assert abs(float(metrics["aux"]) - float(jmetrics["aux"])) <= \
+        frac * max(abs(float(jmetrics["aux"])), 1e-30)
+    if cfg.moe is not None:
+        assert float(jmetrics["aux"]) > 0
+        # every MoE layer routes in the forward, and again in the
+        # recompute under remat
+        want = cfg.n_layers * (2 if VARIANTS[variant].get("remat", True)
+                               else 1)
+        assert routed[0] == want, (routed[0], want)
     want = dict(leaves_with_paths(jgrads))
     for path, g in leaves_with_paths(grads):
         within(g, want[path], 1e-4 if dtype == "float32"
@@ -338,19 +425,23 @@ def test_remat_recomputes_only_the_kernels_and_non_dots():
 SEQ, BATCH = 64, 4
 
 
-def jax_train_losses(jcfg, n_steps, **kw):
-    _, hist, _ = jax_train(jcfg, JShapeConfig("t", SEQ, BATCH, "train"),
+def jax_train_losses(jcfg, n_steps, seq=SEQ, batch=BATCH, **kw):
+    _, hist, _ = jax_train(jcfg, JShapeConfig("t", seq, batch, "train"),
                            n_steps=n_steps, log_every=1,
-                           opts=JT.ModelOptions(**CHUNKS), **kw)
+                           opts=JT.ModelOptions(**chunks(jcfg.name)), **kw)
     return [h["loss"] for h in hist]
 
 
 @functools.lru_cache(maxsize=None)
+def reduced(name):
+    """(port config, JAX config, the JAX ``train``'s own seed-0 params as
+    numpy) of reduced ``name``."""
+    return get_config(name).reduced(), jax_get_config(name).reduced(), \
+        jax_init(name)
+
+
 def qwen2_reduced():
-    jcfg = jax_get_config("qwen2-1.5b").reduced()
-    jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
-    return get_config("qwen2-1.5b").reduced(), jcfg, jax.tree.map(
-        np.asarray, jp)
+    return reduced("qwen2-1.5b")
 
 
 @pytest.mark.parametrize("grad_compression", [False, True])
@@ -369,6 +460,69 @@ def test_train_matches_jax_train(grad_compression):
     got = [h["loss"] for h in hist]
     assert paths is None and [h["step"] for h in hist] == [0, 1, 2]
     np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["xlstm-125m", "granite-moe-1b-a400m"])
+def test_train_matches_jax_train_on_xlstm_and_moe(name, monkeypatch):
+    """3 steps of ``train()`` on reduced xlstm-125m (the reference CLI's
+    default; mLSTM and sLSTM blocks, no kernel) and granite-moe (router,
+    capacity drops, the aux loss in the loss) from the JAX package's
+    seed-0 weights and the same synthetic batches of 2 x 32: every loss
+    within 1e-5 relative (f32).  Both sides start from the tempered weights
+    (``temper``), as the ``loss_fn`` test does: on the untempered xlstm
+    the two packages' f32 gradients are 0.7% of a leaf's largest value
+    apart (tempered, 3e-5), and three AdamW steps make that 4e-4 in the
+    loss.  The router logits of every token are distinct
+    (``distinct_router_logits``)."""
+    cfg, jcfg, _ = reduced(name)
+    monkeypatch.setattr(JT, "init_params", lambda key, c: temper(
+        jax.tree.map(jnp.asarray, jax_init(name))))
+    jp = jax.tree.map(np.asarray, JT.init_params(None, jcfg))
+    want = jax_train_losses(jcfg, 3, seq=32, batch=2)
+    routed = distinct_router_logits(monkeypatch)
+    _, hist, _ = train(cfg, ShapeConfig("t", 32, 2, "train"),
+                       n_steps=3, log_every=1,
+                       opts=T.ModelOptions(**chunks(name)), device="cpu",
+                       params=params_from_jax(jp, "cpu"))
+    np.testing.assert_allclose([h["loss"] for h in hist], want, rtol=1e-5)
+    assert routed[0] == (3 * 2 * cfg.n_layers if cfg.moe else 0)
+
+
+@pytest.mark.parametrize("name", ["xlstm-125m", "granite-moe-1b-a400m"])
+def test_opt_state_from_jax_keeps_each_leaf(name):
+    """``params_from_jax`` and ``opt_state_from_jax`` carry the xLSTM and
+    MoE trees of a bf16 model and their AdamW state after a JAX update:
+    every parameter in the dtype the JAX package gives it (bf16, the MoE
+    router and the mLSTM's ``b_if`` fp32), the same moment paths as the
+    port's own ``adamw.init``, each moment fp32 as in the JAX state and
+    equal to it, the step an int32."""
+    jp = jax.tree.map(jnp.asarray, jax_init(name, "bfloat16"))
+    grads = jax.tree.map(lambda p: jnp.full(p.shape, 0.5, p.dtype), jp)
+    _, jstate, _ = jax.jit(functools.partial(
+        jadamw.update, jadamw.OptConfig(warmup_steps=1)))(
+            grads, jadamw.init(jp), jp)
+    jstate = jax.tree.map(np.asarray, jstate)
+    got = opt_state_from_jax(jstate, "cpu")
+    params = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    want_p = dict(leaves_with_paths(jp))
+    fp32 = []
+    for path, t in leaves_with_paths(params):
+        assert str(t.dtype).split(".")[-1] == str(want_p[path].dtype), path
+        if t.dtype == torch.float32:
+            fp32.append(path[-1])
+    assert set(fp32) == ({"router"} if "moe" in name else {"b_if", "b"})
+    own = adamw.init(params)
+    assert got.step.dtype == torch.int32 and int(got.step) == 1
+    for field in ("mu", "nu"):
+        want = dict(leaves_with_paths(getattr(jstate, field)))
+        mine = dict(leaves_with_paths(getattr(own, field)))
+        leaves = leaves_with_paths(getattr(got, field))
+        assert [p for p, _ in leaves] == list(want) == list(mine)
+        for path, t in leaves:
+            assert str(want[path].dtype) == "float32" == \
+                str(t.dtype).split(".")[-1] == str(mine[path].dtype
+                                                   ).split(".")[-1], path
+            np.testing.assert_array_equal(t.numpy(), want[path])
 
 
 def unsettled(jmu_before, jmu_after, b1):
@@ -522,6 +676,24 @@ def test_training_path_imports_with_jax_blocked():
                          env=dict(os.environ, PYTHONPATH=src),
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_cli_defaults_to_the_reference_cli(monkeypatch):
+    """``python -m repro_torch.launch.train`` with no arguments trains
+    xlstm-125m at full width, 20 steps of 4 x 256, on the card: the JAX
+    package's CLI defaults (``repro/launch/train.py``), the device
+    aside."""
+    from repro_torch.launch import train as train_mod
+    got = {}
+
+    def fake_train(cfg, shape, **kw):
+        got.update(cfg=cfg, shape=shape, **kw)
+        return None, [{"step": 0, "loss": 1.0, "gnorm": 1.0}], None
+    monkeypatch.setattr(train_mod, "train", fake_train)
+    train_mod.main([])
+    assert got["cfg"] == get_config("xlstm-125m")
+    assert (got["shape"].seq_len, got["shape"].global_batch) == (256, 4)
+    assert got["n_steps"] == 20 and got["device"] == "cuda"
 
 
 def test_train_needs_cuda_by_default():
