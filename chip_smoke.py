@@ -2,7 +2,10 @@
 
     python3 chip_smoke.py
 
-Phases, each of which raises (non-zero exit, no result line) on failure:
+Every path runs at published widths and full depth but hymba-1.5b's
+and xlstm-125m's, which run at 8 of 32 and 6 of 12 layers
+(``CUT_DEPTH``).  Phases, each of which raises (non-zero exit, no result
+line) on failure:
 
 1. refuse to run without CUDA; print the card's name and power limit;
 2. build every CUDA kernel of the serving paths from ``src/repro_torch/csrc``
@@ -15,9 +18,12 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    plain torch version on the card, in bf16, at the tolerance of the JAX
    package's kernel tests (rtol = atol = 2e-2; the SSD scan's final state
    at 1e-2) and with each output row within 2e-2 of its largest
-   reference value, at the three attention paths' shapes (qwen2, hymba,
-   granite-moe at D = 64, G = 2) and at each kernel's edges (ragged tiles
-   and splits, small windows, q_offset, G = 1 and 8, peaked scores);
+   reference value, at the attention paths' shapes (qwen2, hymba,
+   granite-moe at D = 64, G = 2, and the single-card configurations of
+   phase 3b: G = 8 at 64 q heads, G = 12, G = 1 at D = 64, llava's vlm
+   prefill at S = 6144 and its decode after it) and at each kernel's
+   edges (ragged tiles and splits, small windows, q_offset, G = 1, 8, 12
+   and 16 at both head dims, peaked scores);
    every decode call is repeated and must be bitwise equal, and must run
    exactly one device kernel under torch.profiler; every SSD call
    likewise, with its three device kernels (chunk state, state pass,
@@ -28,9 +34,25 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    training shapes and windowed, ragged edges, and show under
    torch.profiler that the forward runs the port's kernel and the
    backward none;
+3b. serve the reference's single-card configurations at full width and
+   depth, one at a time, each freed before the next: qwen3-32b,
+   starcoder2-15b, yi-6b, llava-next-mistral-7b and musicgen-large.  For
+   each: the bytes ``launch.specs.params_struct`` reckons, the card's free
+   memory and the init's peak (within the weights plus one fp32 slice
+   plus 1 GiB); its steps broken down under torch.profiler as in 4 (its
+   kernels, and llava's at its vlm prefill over 6144 positions, are
+   timed as in 4 before this phase); ``serve`` without a profiler,
+   launch counters set to 0 just before and read just after (exact
+   counts), prefill and decode ms and tokens/s, every batch replayed;
+   llava's vlm prefill (4 x 6144: 2880 seeded patch embeddings before
+   3264 tokens) and musicgen's audio prefill on frame embeddings, each
+   followed by 31 decode steps (musicgen's on frame embeddings), exact
+   launch counts, finite logits, timed and broken down; the 2-layer
+   full-width model against the CPU as in 6, on tokens and, for the two
+   frontends, on their embeddings;
 4. time a train step of qwen2-1.5b, hymba-1.5b, granite-moe-1b-a400m
-   and xlstm-125m at full width and depth under torch.profiler (host
-   wall, device busy, idle share, tokens/s, the kernels' share) on a
+   and xlstm-125m at full width under torch.profiler (host wall, device
+   busy, idle share, tokens/s, the kernels' share) on a
    repeated batch whose loss must fall, and split one step's device time
    by the train step's named scopes (``fwd_bwd``, its forward and its
    backward with the remat recompute, ``optimizer``); time each kernel
@@ -41,9 +63,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    take for the same work (the kernel modules' own ``work`` counts), and
    the decode kernel at every split count the planner could choose, and
    the SSD scan's device time by step; break a serving step's time down
-   by device kernel.  All of this runs under torch.profiler, for all four
-   models, before the first profiled serve (see ``time_path``);
-5. serve qwen2-1.5b and then hymba-1.5b at full width and depth with
+   by device kernel.  All of this runs under torch.profiler before the
+   first profiled serve, and every path's kernels (those of 3b too) are
+   timed before the first window of whole steps (see ``time_path``);
+5. serve qwen2-1.5b and then hymba-1.5b at full width with
    seeded random weights through ``repro_torch.launch.serve.serve`` under
    the port's profiler, with every kernel launch counter set to 0 just
    before each and read just after; check token shape, launch counts and
@@ -61,7 +84,7 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    plain versions;
 7. serve granite-moe-1b-a400m (MoE, 32 experts top 8; both attention
    kernels) and xlstm-125m (mLSTM + sLSTM; no kernel: the JAX package has
-   none for it) at full width and depth under the always-on serving
+   none for it) at full width under the always-on serving
    profiler (``serve(serving=...)``, the governor at budget 0.5), launch
    counters set to 0 just before and read just after; check launches,
    every request batch's GPU time in both phases from the aggregated
@@ -73,9 +96,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    card and check every row's per-request attribution;
 9. train qwen2-1.5b and granite-moe-1b-a400m (6 steps of 4 x 512, under
    the port's profiler), hymba-1.5b (3 steps of 2 x 1536) and xlstm-125m
-   (6 steps of 4 x 256, the JAX package's CLI defaults) at full width and
-   depth through ``repro_torch.launch.train.train``, launch counters set
-   to 0 just before and read just after each: the launch counts the
+   (6 steps of 4 x 256, the JAX package's CLI defaults) at full width
+   through ``repro_torch.launch.train.train``, launch counters set to 0
+   just before and read just after each: the launch counts the
    remat policy implies, finite losses, one custom-call per launch in the
    registered train step, PC samples under its placeholder and in the
    flash kernel's dot_general leaves, and each named scope's share of
@@ -83,7 +106,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    full-width train step (loss and every gradient leaf) of qwen2,
    granite-moe and xlstm against the same bf16 weights on the CPU; a
    resume from an async checkpoint whose first loss is bitwise the
-   uninterrupted run's.
+   uninterrupted run's;
+10. serve starcoder2-15b at full width and depth under the port's
+   profiler and check, as in 5, PC samples that reach the decode
+   kernel's dot_general leaves at G = 12.  Nothing is timed under
+   torch.profiler after it.
 
 The line before the last is a JSON object with one entry per kernel and
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -141,6 +168,25 @@ SOURCES = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/decode_attention.py:30"),
            "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                         "src/repro/kernels/ssm_scan.py:34")}
+
+
+# hymba and xlstm run every path (serving, the step breakdowns, training)
+# at a cut depth, 8 of 32 layers and one period of 6 of 12, at published
+# widths: their host-bound steps and exports took the most wall per check
+# of the script (hymba's serving export 47 s, a full-depth train step 3.4 s
+# for 0.94 s of device time; xlstm's export 46 s, 64,000 device kernels a
+# train step), and the single-card configurations' serves need the room
+# under the time limit
+CUT_DEPTH = {"hymba-1.5b": 8, "xlstm-125m": 6}
+
+
+def _config(name: str):
+    """A path's configuration: published widths, at ``CUT_DEPTH``'s
+    depth where it is cut."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    return dataclasses.replace(cfg,
+                               n_layers=CUT_DEPTH.get(name, cfg.n_layers))
 
 
 def card_line() -> str:
@@ -243,6 +289,17 @@ def check_kernels() -> tuple:
             # granite-moe's main path: D = 64, G = 2, causal, no window
             (B, 512, 512, 16, 8, 64, 0, 0, 1.0),
             (B, 512, 512, 16, 8, 64, 0, 0, 4.0),
+            # the single-card configurations' prefills: qwen3-32b (G = 8
+            # at 64 q heads), starcoder2-15b (G = 12), yi-6b, musicgen-large
+            # (G = 1, D = 64), llava-next-mistral-7b's text and its vlm
+            # prefill over 2880 patches and 3264 tokens (S = 6144)
+            (B, 512, 512, 64, 8, 128, 0, 0, 1.0),
+            (B, 512, 512, 48, 4, 128, 0, 0, 1.0),
+            (B, 512, 512, 48, 4, 128, 0, 0, 4.0),
+            (B, 512, 512, 32, 4, 128, 0, 0, 1.0),
+            (B, 512, 512, 32, 32, 64, 0, 0, 1.0),
+            (B, 512, 512, 32, 8, 128, 0, 0, 1.0),
+            (B, 6144, 6144, 32, 8, 128, 0, 0, 1.0),
             # the wgmma kernel's edges: S and Sk off its 64-row tiles, a
             # window under one kv tile, q_offset at D = 64, peaked scores
             (1, 200, 200, 4, 1, 64, 48, 0, 4.0),
@@ -260,9 +317,15 @@ def check_kernels() -> tuple:
     # decode: the JAX test's flat softmax (all inputs x0.5) and a peaked
     # one (scores of std 4), where a wrong split merge is large; qwen2's
     # cache and a long one at D=128 G=6, hymba's full ring at D=64 G=5,
-    # granite-moe's cache at D=64 G=2
+    # granite-moe's cache at D=64 G=2; the single-card configurations':
+    # qwen3-32b (G = 8), starcoder2-15b (G = 12), yi-6b (G = 8),
+    # musicgen-large (D = 64, G = 1) and llava-next-mistral-7b's cache
+    # after its vlm prefill (G = 4, 6144 + 32 slots)
     for h, hkv, d, smax in ((12, 2, 128, 544), (12, 2, 128, 4096),
-                            (25, 5, 64, 1024), (16, 8, 64, 544)):
+                            (25, 5, 64, 1024), (16, 8, 64, 544),
+                            (64, 8, 128, 544), (48, 4, 128, 544),
+                            (32, 4, 128, 544), (32, 32, 64, 544),
+                            (32, 8, 128, 6176)):
         for q_scale, kv_scale in ((0.5, 0.5), (4.0, 1.0)):
             q = _randn((B, h, d), gen, q_scale)
             kc = _randn((B, smax, hkv, d), gen, kv_scale)
@@ -271,14 +334,19 @@ def check_kernels() -> tuple:
                 note("flash_decode", ops.flash_decode(q, kc, vc, length),
                      fd.flash_decode_plain(q, kc, vc, length))
     # the one-launch cluster kernel's edges, each twice (bitwise equal):
-    # lengths off 16/32/64 and 1, G = 1 and G = 8 at both head dims, flat
-    # and peaked scores
+    # lengths off 16/32/64 and 1, G = 1, 8, 12 and 16 (the m16 tile's
+    # rows g + 8 real from G = 9 on) at both head dims, flat and peaked
+    # scores
     for h, hkv, d, smax, lengths in (
             (12, 2, 128, 544, (1, 17, 33, 100, 527)),
             (25, 5, 64, 1024, (1, 47, 1000)),
             (16, 8, 64, 544, (1, 33, 528)),
             (2, 2, 128, 300, (1, 31, 299)), (2, 2, 64, 300, (5, 129)),
-            (16, 2, 128, 600, (1, 63, 600)), (16, 2, 64, 600, (9, 257))):
+            (16, 2, 128, 600, (1, 63, 600)), (16, 2, 64, 600, (9, 257)),
+            (48, 4, 128, 544, (1, 17, 100, 527)),
+            (12, 1, 64, 300, (1, 31, 299)), (16, 1, 128, 600, (1, 63, 600)),
+            (32, 2, 64, 600, (9, 257, 600)),
+            (32, 2, 128, 1000, (1, 333, 999))):
         for q_scale, kv_scale in ((0.5, 0.5), (4.0, 1.0)):
             q = _randn((B, h, d), gen, q_scale)
             kc = _randn((B, smax, hkv, d), gen, kv_scale)
@@ -296,7 +364,10 @@ def check_kernels() -> tuple:
     # launcher is called with the splits): 8 x 64 keys over 449, 8 x 128
     # over 897
     for h, hkv, d, smax, length, splits in ((12, 2, 128, 544, 449, (8, 64)),
-                                            (25, 5, 64, 1024, 897, (8, 128))):
+                                            (25, 5, 64, 1024, 897, (8, 128)),
+                                            (48, 4, 128, 544, 449, (8, 64)),
+                                            (32, 2, 64, 1024, 897, (8, 128)),
+                                            (32, 2, 128, 600, 385, (3, 192))):
         q = _randn((B, h, d), gen, 4.0)
         kc = _randn((B, smax, hkv, d), gen)
         vc = _randn((B, smax, hkv, d), gen)
@@ -368,9 +439,12 @@ def check_kernels() -> tuple:
         raise AssertionError(f"ssm_scan ran {distinct} distinct device "
                              f"kernels, {per_call} per call; want "
                              f"{SSM_STEPS}")
-    # one device kernel per decode call, at the three paths' shapes
+    # one device kernel per decode call, at the paths' shapes and at G = 16
     for h, hkv, d, smax in ((12, 2, 128, 544), (25, 5, 64, 1024),
-                            (16, 8, 64, 544)):
+                            (16, 8, 64, 544), (64, 8, 128, 544),
+                            (48, 4, 128, 544), (32, 32, 64, 544),
+                            (32, 8, 128, 6176), (32, 2, 64, 600),
+                            (32, 2, 128, 600)):
         q = _randn((B, h, d), gen, 0.5)
         kc = _randn((B, smax, hkv, d), gen, 0.5)
         distinct, per_call = device_kernels(
@@ -714,10 +788,23 @@ def _serve_opts(prompt: int):
                           ssm_chunk=min(64, prompt))
 
 
+def serve_launches(cfg) -> dict:
+    """Each kernel's launches in one ``serve`` of ``N_REQUESTS`` in batches
+    of ``B``: every attention layer's flash prefill once a prefill and its
+    decode once a decode step, every hybrid layer's SSD scan once a
+    prefill, for the warm-up and each batch."""
+    from repro_torch.configs.base import HYBRID
+    n_batches = -(-N_REQUESTS // B)
+    n_attn = cfg.n_layers if _has_attention(cfg) else 0
+    n_hybrid = sum(k == HYBRID for k in cfg.blocks)
+    return {"flash_attention": n_attn * (n_batches + 1),
+            "flash_decode": n_attn * ((GEN_LEN - 1) * n_batches + 1),
+            "ssm_scan": n_hybrid * (n_batches + 1)}
+
+
 def run_serve(cfg, params, prompt: int) -> dict:
     """The main path: serve under the port's profiler, every kernel launch
     counter set to 0 just before and read just after."""
-    from repro_torch.configs.base import HYBRID
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
     prof_dir = os.path.join(ROOT, "chiprun_out", "chip_smoke_profile")
@@ -731,11 +818,7 @@ def run_serve(cfg, params, prompt: int) -> dict:
                         profile_dir=prof_dir, device="cuda", params=params)
     wall = time.monotonic() - t0
     launches = {name: getattr(ops, name).launches for name in KERNELS}
-    n_batches = -(-N_REQUESTS // B)
-    n_hybrid = sum(k == HYBRID for k in cfg.blocks)
-    want = {"flash_attention": cfg.n_layers * (n_batches + 1),
-            "flash_decode": cfg.n_layers * ((GEN_LEN - 1) * n_batches + 1),
-            "ssm_scan": n_hybrid * (n_batches + 1)}
+    want = serve_launches(cfg)
     if launches != want:
         raise AssertionError(f"{cfg.name}: launch counts {launches}, "
                              f"expected {want}")
@@ -748,21 +831,6 @@ def run_serve(cfg, params, prompt: int) -> dict:
     return dict(tokens=toks, launches=launches, wall_s=wall, paths=paths,
                 prefill_ms=lat["prefill"][0], decode_ms=lat["decode_step"][0],
                 tok_per_s_in_steps=N_REQUESTS * GEN_LEN / step_s)
-
-
-def serve_wall(cfg, params, prompt: int) -> float:
-    """Wall seconds of the same serve as ``run_serve`` without a profile
-    directory (no profiler, no registration)."""
-    from repro_torch.launch.serve import serve
-    t0 = time.monotonic()
-    toks, paths = serve(cfg, n_requests=N_REQUESTS, batch=B,
-                        prompt_len=prompt, gen_len=GEN_LEN, profile_dir=None,
-                        device="cuda", params=params)
-    wall = time.monotonic() - t0
-    if paths is not None or tuple(toks.shape) != (N_REQUESTS, GEN_LEN):
-        raise AssertionError(f"serve without a profile: {paths}, "
-                             f"{tuple(toks.shape)}")
-    return wall
 
 
 def _database(paths: dict, out_dir: str):
@@ -898,8 +966,11 @@ def check_sass() -> dict:
     tables = {name: sass_lines(str(path), os.path.join(
         str(build.BUILD_DIR), "sass", name)) for name, path in libs.items()}
     checked = {}
-    for name, spec in {**PATHS, **SERVING_PATHS}.items():
-        prompt = spec["prompt"]
+    paths = [(name, spec["prompt"]) for name, spec in
+             {**PATHS, **SERVING_PATHS, **BIG_PATHS}.items()]
+    paths += [(name, spec["frontend_seq"]) for name, spec in BIG_PATHS.items()
+              if spec.get("frontend_seq", spec["prompt"]) != spec["prompt"]]
+    for name, prompt in paths:
         for ks in kernel_structures(get_config(name), B, prompt,
                                     prompt + GEN_LEN):
             lib = ks.file[:-len(".cu")]
@@ -941,26 +1012,33 @@ def check_replay(cfg, params, toks, prompt: int) -> None:
                                  f"from serve")
 
 
-def step_breakdown(cfg, params, prompt: int, n_decode: int = 8) -> dict:
+def step_breakdown(cfg, params, prompt: int, n_decode: int = 8,
+                   batch=None, embed=None) -> dict:
     """Where a serving step's time goes, under torch.profiler
-    (``profiled_steps``): one prefill, ``n_decode`` decode steps."""
+    (``profiled_steps``): one prefill, ``n_decode`` decode steps.  The
+    prefill takes ``batch`` (a frontend's, ``prompt`` positions long;
+    zero tokens by default) and each decode step ``embed`` (an audio
+    frame) or the prefill's argmax token."""
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import steps
     opts = _serve_opts(prompt)
     prefill = steps.make_prefill_step(cfg, opts)
     decode = steps.make_decode_step(cfg, opts)
-    batch = {"tokens": torch.zeros((B, prompt), dtype=torch.long,
-                                   device="cuda")}
+    if batch is None:
+        batch = {"tokens": torch.zeros((B, prompt), dtype=torch.long,
+                                       device="cuda")}
     out = {}
     for phase in ("prefill", "decode"):
         logits, cache = prefill(params, batch)
         cache = serve_mod._grow_cache(cache, prompt + GEN_LEN, prompt)
-        tok = logits.argmax(-1)
+        kw = dict(token=logits.argmax(-1)) if embed is None \
+            else dict(embed=embed)
         steps_run = iter(range(prompt, prompt + n_decode))
         out[phase] = profiled_steps(
             (lambda: prefill(params, batch)) if phase == "prefill" else
-            (lambda: decode(params, cache, next(steps_run), token=tok)),
+            (lambda: decode(params, cache, next(steps_run), **kw)),
             1 if phase == "prefill" else n_decode)
+        del logits, cache
     return out
 
 
@@ -995,11 +1073,16 @@ def profiled_steps(step, n: int, top: int = 5) -> dict:
                               e.count // n) for e in ranked])
 
 
-def check_against_cpu(cfg, prompt: int, window: int, blocks=None) -> float:
+def check_against_cpu(cfg, prompt: int, window: int, blocks=None,
+                      batch: int = 2, frontend: bool = False) -> float:
     """A 2-layer model at full width (window layers at ``window``; with
     ``blocks``, that block pattern): kernels on the card against the same
     bf16 weights on the CPU through the plain versions, prefill plus 4
-    teacher-forced decode steps.  Both sides round
+    teacher-forced decode steps, ``batch`` sequences of ``prompt``
+    positions.  With ``frontend`` the inputs are the configuration's
+    frontend batch (``launch.specs.batch_struct``: a vlm prefix of patch
+    embeddings before tokens, or audio frame embeddings in place of
+    tokens, and a frame embedding per audio decode step).  Both sides round
     to bf16 at the same points and differ by accumulation order only, a
     few bf16 ulps at the logits' scale; so the max abs logit error is held
     to 2e-2 of the largest reference logit, per step.
@@ -1028,12 +1111,27 @@ def check_against_cpu(cfg, prompt: int, window: int, blocks=None) -> float:
     p_gpu = _temper(T.init_params(gen, small))
     p_cpu = tree_map(lambda x: x.cpu(), p_gpu)
     opts = T.ModelOptions(q_chunk=64, kv_chunk=64, ssm_chunk=64)
-    toks = torch.from_numpy(np.random.default_rng(3).integers(
-        0, cfg.vocab, (2, prompt), np.int64))
+    if frontend:
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch import specs
+        gen.manual_seed(3)
+        shape = ShapeConfig(cfg.frontend, prompt, batch, "prefill")
+        ins = {k: _seeded(v, cfg.vocab, gen)
+               for k, v in specs.batch_struct(cfg, shape).items()}
+        frames = [_seeded(specs.decode_struct(cfg, shape)["embed"],
+                          cfg.vocab, gen) for _ in range(4)] \
+            if cfg.frontend == "audio" else None
+    else:
+        ins = {"tokens": torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab, (batch, prompt), np.int64)).cuda()}
+        frames = None
     worst = 0.0
     with torch.no_grad():
-        lg, cg = T.prefill(p_gpu, small, toks.cuda(), opts=opts)
-        lc, cc = T.prefill(p_cpu, small, toks, opts=opts)
+        lg, cg = T.prefill(p_gpu, small, ins.get("tokens"),
+                           ins.get("embeds"), opts=opts)
+        lc, cc = T.prefill(p_cpu, small, *(
+            None if ins.get(k) is None else ins[k].cpu()
+            for k in ("tokens", "embeds")), opts=opts)
         cg = serve_mod._grow_cache(cg, prompt + 8, prompt)
         cc = serve_mod._grow_cache(cc, prompt + 8, prompt)
         for t in range(5):
@@ -1047,12 +1145,27 @@ def check_against_cpu(cfg, prompt: int, window: int, blocks=None) -> float:
             worst = max(worst, rel)
             if t == 4:
                 break
-            nxt = lg.argmax(-1)
-            lg, cg = T.decode_step(p_gpu, small, cg, token=nxt,
-                                   pos=prompt + t, opts=opts)
-            lc, cc = T.decode_step(p_cpu, small, cc, token=nxt.cpu(),
-                                   pos=prompt + t, opts=opts)
+            if frames is None:
+                kg = dict(token=lg.argmax(-1))
+                kc = dict(token=kg["token"].cpu())
+            else:
+                kg, kc = dict(embed=frames[t]), dict(embed=frames[t].cpu())
+            lg, cg = T.decode_step(p_gpu, small, cg, pos=prompt + t,
+                                   opts=opts, **kg)
+            lc, cc = T.decode_step(p_cpu, small, cc, pos=prompt + t,
+                                   opts=opts, **kc)
     return worst
+
+
+def _seeded(struct, vocab: int, gen) -> torch.Tensor:
+    """A seeded tensor on the card for a ``launch.specs`` stand-in:
+    integers below ``vocab`` for tokens, N(0, 1) embeddings (the scale of
+    the token embedding's rows) for the frontends' stubs."""
+    if not struct.dtype.is_floating_point:
+        return torch.randint(0, vocab, tuple(struct.shape), generator=gen,
+                             device="cuda", dtype=struct.dtype)
+    return torch.randn(tuple(struct.shape), generator=gen,
+                       device="cuda").to(struct.dtype)
 
 
 def _temper(params) -> dict:
@@ -1067,12 +1180,13 @@ def _temper(params) -> dict:
 
 
 def init_params(name: str) -> dict:
-    """Seeded random weights of one model at full width and depth."""
+    """Seeded random weights of one model at full width and its path's
+    depth (``_config``)."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    return T.init_params(gen, get_config(name))
+    return T.init_params(gen, _config(name))
 
 
 def _has_attention(cfg) -> bool:
@@ -1080,36 +1194,47 @@ def _has_attention(cfg) -> bool:
     return any(k in (ATTN, SWA, HYBRID) for k in cfg.blocks)
 
 
-def time_path(name: str, params) -> dict:
-    """Time one model's kernels and break its steps down under
-    torch.profiler.  Runs before any of the port's profiled serves: once
-    the port's profiler has drawn PC samples in a process, torch.profiler
-    drops device records (on an "NVIDIA H100 80GB HBM3" at 700 W, 1 of
-    20 launches a window after a 2-layer serve, 4 after a full-depth one;
-    none after an export, a registration or a profiled serve that draws
-    no samples).  Returns the kernel times."""
+def time_path(name: str, prompt: int = 0, label: str = "") -> dict:
+    """Time one path's kernels (``time_kernels``, at ``prompt``, the
+    path's own by default) and print them; needs no weights.  Every
+    path's kernels are timed first, before any window of whole steps and
+    any of the port's profiled serves: after a window of a whole step's
+    thousands of launches torch.profiler on an "NVIDIA H100 80GB HBM3" at
+    700 W dropped 1-2 records in every later window of 20 calls (after
+    qwen3-32b's 8 decode steps, about 36,000 launches, in every window),
+    and once the port's profiler has drawn PC samples in a process it
+    drops them too (1 of 20 launches a window after a 2-layer serve, 4
+    after a full-depth one; none after an export, a registration or a
+    profiled serve that draws no samples).  Returns the kernel times,
+    empty without attention."""
     from repro_torch.configs import get_config
     cfg = get_config(name)
-    prompt = {**PATHS, **SERVING_PATHS}[name]["prompt"]
+    prompt = prompt or {**PATHS, **SERVING_PATHS, **BIG_PATHS}[name]["prompt"]
+    label = label or name
     if not _has_attention(cfg):
-        print(f"{name} step breakdown: "
-              f"{json.dumps(step_breakdown(cfg, params, prompt))}",
-              flush=True)
         return {}
     times, splits, steps = time_kernels(cfg, prompt)
     for kname, (t, calls) in times.items():
         by_step = (f"; device ms by step {json.dumps(steps)}"
                    if kname == "ssm_scan" else "")
-        print(f"{name} {kname}: device {json.dumps(t)}; back-to-back call "
+        print(f"{label} {kname}: device {json.dumps(t)}; back-to-back call "
               f"{json.dumps(calls)}{by_step}", flush=True)
-    print(f"{name} flash_decode by split count: {json.dumps(splits)}",
+    print(f"{label} flash_decode by split count: {json.dumps(splits)}",
           flush=True)
     if "ssm_scan" in times:
         print("ssm_scan library_ms: null, no single PyTorch call computes "
               "a selective (SSD) scan", flush=True)
+    return times
+
+
+def breakdown_path(name: str, params) -> None:
+    """Print where one model's serving steps' time goes (``step_breakdown``
+    under torch.profiler), before any of the port's profiled serves (see
+    ``time_path``)."""
+    cfg = _config(name)
+    prompt = {**PATHS, **SERVING_PATHS, **BIG_PATHS}[name]["prompt"]
     print(f"{name} step breakdown: "
           f"{json.dumps(step_breakdown(cfg, params, prompt))}", flush=True)
-    return times
 
 
 def serve_path(name: str, params) -> dict:
@@ -1117,12 +1242,11 @@ def serve_path(name: str, params) -> dict:
     profile and database, the profiler's overhead, the 2-layer CPU check
     and a counters serve.  Frees ``params`` on the way.  Returns the
     serve result."""
-    from repro_torch.configs import get_config
-    cfg = get_config(name)
+    cfg = _config(name)
     prompt = PATHS[name]["prompt"]
-    plain_s = [serve_wall(cfg, params, prompt)]
+    plain_s = [serve_plain(cfg, params, prompt)["wall_s"]]
     srv = run_serve(cfg, params, prompt)
-    plain_s.append(serve_wall(cfg, params, prompt))
+    plain_s.append(serve_plain(cfg, params, prompt)["wall_s"])
     print(f"serve {name}: {N_REQUESTS} requests x {GEN_LEN} tokens, "
           f"batch {B}, prompt {prompt}: wall {srv['wall_s']:.2f} s (incl. "
           f"warm-up), prefill {srv['prefill_ms']:.3f} ms/batch, decode "
@@ -1181,11 +1305,7 @@ def run_serving(cfg, params, prompt: int) -> dict:
     paths = sp.write()
     status, governor = sp.status(), sp.governor.state()
     sp.stop()
-    n_batches = -(-N_REQUESTS // B)
-    n_attn = cfg.n_layers if _has_attention(cfg) else 0
-    want = {"flash_attention": n_attn * (n_batches + 1),
-            "flash_decode": n_attn * ((GEN_LEN - 1) * n_batches + 1),
-            "ssm_scan": 0}
+    want = serve_launches(cfg)
     if launches != want:
         raise AssertionError(f"{cfg.name}: launch counts {launches}, "
                              f"expected {want}")
@@ -1238,13 +1358,12 @@ def serving_path(name: str, params) -> dict:
     CPU check, and print the governor's final level and the serve wall
     over that of the same serve without a profiler.  Frees ``params`` on
     the way.  Returns the serve result."""
-    from repro_torch.configs import get_config
-    cfg = get_config(name)
+    cfg = _config(name)
     spec = SERVING_PATHS[name]
     prompt = spec["prompt"]
-    plain_s = [serve_wall(cfg, params, prompt)]
+    plain_s = [serve_plain(cfg, params, prompt)["wall_s"]]
     srv = run_serving(cfg, params, prompt)
-    plain_s.append(serve_wall(cfg, params, prompt))
+    plain_s.append(serve_plain(cfg, params, prompt)["wall_s"])
     gov = srv["governor"]
     print(f"serve {name} under the serving profiler (budget {BUDGET}): "
           f"{N_REQUESTS} requests x {GEN_LEN} tokens, batch {B}, prompt "
@@ -1276,6 +1395,297 @@ def serving_path(name: str, params) -> dict:
           f"{spec.get('cpu_blocks', 'as configured')}) vs CPU bf16 plain: "
           f"max abs logit err / max abs logit {worst:.4f}", flush=True)
     return srv
+
+
+# ---------------------------------------------------------------------------
+# the reference's single-card configurations at full width and depth
+# ---------------------------------------------------------------------------
+# each: the serving prompt (qwen2's), the frontend batch's length (llava:
+# 2880 patch embeddings, the anyres maximum, before 3264 text tokens;
+# musicgen: frame embeddings in place of tokens), and the 2-layer CPU
+# check's batch and prompt: B = 1 and 32 positions where the CPU side
+# is largest (qwen3-32b's 2 layers are 0.98 B parameters beside 1.56 B of
+# embed and unembed, starcoder2-15b's 1.21 B beside 0.60 B); llava's
+# frontend check holds 16 patches before 16 tokens
+BIG_PATHS = {
+    "qwen3-32b": dict(prompt=512, cpu_batch=1, cpu_prompt=32),
+    "starcoder2-15b": dict(prompt=512, cpu_batch=1, cpu_prompt=32),
+    "yi-6b": dict(prompt=512, cpu_batch=2, cpu_prompt=64),
+    "llava-next-mistral-7b": dict(prompt=512, frontend_seq=6144,
+                                  cpu_batch=2, cpu_prompt=32),
+    "musicgen-large": dict(prompt=512, frontend_seq=512, cpu_batch=2,
+                           cpu_prompt=64)}
+# the profiled serve after the training phase: starcoder2-15b's decode
+# kernel at G = 12 under the port's profiler, at full depth (each 40-layer
+# step exported in 15-21 s on the card's host)
+PROFILED_BIG = "starcoder2-15b"
+
+
+def init_big(name: str) -> tuple:
+    """Seeded full-width, full-depth weights of one of ``BIG_PATHS`` on the
+    card, after printing the bytes ``launch.specs.params_struct`` reckons
+    and the card's free memory.  The init's peak (over what was allocated
+    before it) must stay within the weights plus the largest fp32 slice
+    that ``dense_init`` draws (a period's slice of a stacked leaf, or the
+    whole embed or unembed) plus 1 GiB: the check of its slice-at-a-time
+    draw.  Returns (params, {weights, largest slice, peak, free before})."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs
+    from repro_torch.tree import leaves_with_paths
+    cfg = get_config(name)
+    struct = specs.params_struct(cfg)
+    weights = specs.nbytes(struct)
+    slice_fp32 = max(4 * t.numel() // (t.shape[0] if path[0] == "layers"
+                                       else 1)
+                     for path, t in leaves_with_paths(struct))
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"{name}: params_struct reckons {weights} bytes of weights (largest "
+          f"fp32 slice {slice_fp32} bytes); card free {free} of {total} "
+          f"bytes", flush=True)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = init_params(name)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    got = torch.cuda.memory_allocated() - before
+    info = dict(weights=weights, allocated=got, init_peak=peak,
+                largest_fp32_slice=slice_fp32, free_before=free,
+                init_s=seconds)
+    print(f"{name}: init on the card: {json.dumps(info)}", flush=True)
+    if peak > weights + slice_fp32 + 2 ** 30:
+        raise AssertionError(f"{name}: the init's peak {peak} exceeds the "
+                             f"weights {weights} by more than one fp32 "
+                             f"slice {slice_fp32} plus 1 GiB")
+    return params, info
+
+
+def run_frontend(cfg, params, seq: int) -> dict:
+    """A frontend's prefill and 31 decode steps through ``launch.steps``,
+    on the batch ``launch.specs`` lays out (vlm: min(frontend_tokens,
+    seq // 2) seeded patch embeddings before the text tokens, decode on
+    tokens; audio: seeded frame embeddings in place of tokens, and one
+    frame embedding per decode step), batch ``B``, every kernel launch
+    counter set to 0 just before and read just after: one flash launch a
+    layer for the prefill, one decode launch a layer a step, exact; every
+    logit finite.  Returns {launches, prefill_ms, decode_ms, batch
+    shapes}."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import specs, steps
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    batch = {k: _seeded(v, cfg.vocab, gen) for k, v in specs.batch_struct(
+        cfg, ShapeConfig(cfg.frontend, seq, B, "prefill")).items()}
+    dec = specs.decode_struct(cfg, ShapeConfig(cfg.frontend, seq + GEN_LEN,
+                                               B, "decode"))
+    frames = [_seeded(dec["embed"], cfg.vocab, gen)
+              for _ in range(GEN_LEN - 1)] if "embed" in dec else None
+    opts = _serve_opts(seq)
+    prefill = steps.make_prefill_step(cfg, opts)
+    decode = steps.make_decode_step(cfg, opts)
+    torch.cuda.synchronize()
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    finite = [torch.isfinite(logits).all()]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cache = serve_mod._grow_cache(cache, seq + GEN_LEN, seq)
+    tok = logits.argmax(-1)
+    for t in range(GEN_LEN - 1):
+        kw = dict(token=tok) if frames is None else dict(embed=frames[t])
+        logits, cache = decode(params, cache, seq + t, **kw)
+        finite.append(torch.isfinite(logits).all())
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {name: getattr(ops, name).launches for name in KERNELS}
+    want = {"flash_attention": cfg.n_layers,
+            "flash_decode": cfg.n_layers * (GEN_LEN - 1), "ssm_scan": 0}
+    if launches != want:
+        raise AssertionError(f"{cfg.name} {cfg.frontend}: launch counts "
+                             f"{launches}, expected {want}")
+    if tuple(logits.shape) != (B, cfg.vocab) or \
+            not bool(torch.stack(finite).all()):
+        raise AssertionError(f"{cfg.name} {cfg.frontend}: logits "
+                             f"{tuple(logits.shape)}, not all finite")
+    return dict(launches=launches, prefill_ms=(t1 - t0) * 1e3,
+                decode_ms=(t2 - t1) * 1e3 / (GEN_LEN - 1),
+                batch={k: list(v.shape) for k, v in batch.items()},
+                decode_input="embed" if frames else "token")
+
+
+def serve_plain(cfg, params, prompt: int) -> dict:
+    """The main path without a profiler: ``serve`` with every kernel
+    launch counter set to 0 just before and read just after, exact
+    counts (``serve_launches``).  Returns {tokens, launches, wall_s: the
+    serve's wall seconds, warm-up included}."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
+    t0 = time.monotonic()
+    toks, paths = serve(cfg, n_requests=N_REQUESTS, batch=B,
+                        prompt_len=prompt, gen_len=GEN_LEN, profile_dir=None,
+                        device="cuda", params=params)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {name: getattr(ops, name).launches for name in KERNELS}
+    want = serve_launches(cfg)
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: launch counts {launches}, "
+                             f"expected {want}")
+    if paths is not None or tuple(toks.shape) != (N_REQUESTS, GEN_LEN):
+        raise AssertionError(f"{cfg.name}: serve gave {paths}, tokens "
+                             f"{tuple(toks.shape)}")
+    return dict(tokens=toks, launches=launches, wall_s=wall)
+
+
+def _phase_ms(cfg, params, prompt: int) -> dict:
+    """Host wall ms of one prefill of a batch of ``B`` prompts and of one
+    decode step, each ending in a synchronize (the steps ``serve`` runs,
+    outside it), and tokens/s of a batch of ``GEN_LEN`` tokens."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import steps
+    opts = _serve_opts(prompt)
+    prefill = steps.make_prefill_step(cfg, opts)
+    decode = steps.make_decode_step(cfg, opts)
+    toks = torch.zeros((B, prompt), dtype=torch.long, device="cuda")
+    prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cache = serve_mod._grow_cache(cache, prompt + GEN_LEN, prompt)
+    tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for t in range(GEN_LEN - 1):
+        logits, cache = decode(params, cache, prompt + t, token=tok)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    prefill_ms = (t1 - t0) * 1e3
+    decode_ms = (t3 - t2) * 1e3 / (GEN_LEN - 1)
+    return dict(prefill_ms=prefill_ms, decode_ms=decode_ms,
+                tok_per_s=B * GEN_LEN / (prefill_ms + (GEN_LEN - 1)
+                                         * decode_ms) * 1e3)
+
+
+def time_big_kernels() -> dict:
+    """The kernels of every path of ``BIG_PATHS`` timed (``time_path``),
+    and of the frontends at their own lengths where they differ (llava's
+    vlm prefill over 6144 positions and the decode after it; the plain
+    attention over 6144 positions takes about 58 GB, so this runs with
+    no weights on the card).  Returns {path: kernel times}."""
+    from repro_torch.configs import get_config
+    out = {}
+    for name, spec in BIG_PATHS.items():
+        out[name] = time_path(name)
+        seq = spec.get("frontend_seq")
+        if seq:
+            label = f"{name}:{get_config(name).frontend}"
+            out[label] = out[name] if seq == spec["prompt"] else \
+                time_path(name, seq, label)
+        torch.cuda.empty_cache()
+    return out
+
+
+def big_path(name: str, card: str) -> dict:
+    """One of ``BIG_PATHS`` at full width and depth on the card, alone:
+    the init and its peak memory (``init_big``), its steps broken down
+    under torch.profiler (``breakdown_path``; its kernels are timed
+    before, by ``time_big_kernels``), ``serve`` without a profiler at
+    exact launch counts, the prefill and decode host ms and tokens/s,
+    every batch replayed; llava's vlm and musicgen's audio frontend
+    through ``run_frontend`` (exact launches, finite logits), broken down
+    as well; the 2-layer full-width model against the CPU on tokens, and
+    for a frontend on its embeddings.  Frees the weights.  Returns
+    {serve, phase, frontend, cpu, init}."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    spec = BIG_PATHS[name]
+    prompt = spec["prompt"]
+    t0 = time.monotonic()
+    params, init = init_big(name)
+    breakdown_path(name, params)
+    srv = serve_plain(cfg, params, prompt)
+    phase = _phase_ms(cfg, params, prompt)
+    print(f"serve {name} ({card}): {N_REQUESTS} requests x {GEN_LEN} "
+          f"tokens, batch {B}, prompt {prompt}, no profiler: wall "
+          f"{srv['wall_s']:.2f} s (incl. warm-up); prefill "
+          f"{phase['prefill_ms']:.3f} ms/batch, decode "
+          f"{phase['decode_ms']:.3f} ms/step, {phase['tok_per_s']:.1f} "
+          f"tok/s; launches {json.dumps(srv['launches'])}", flush=True)
+    check_replay(cfg, params, srv["tokens"], prompt)
+    print(f"replay {name}: every batch reproduces serve's tokens",
+          flush=True)
+    out = dict(serve=srv, phase=phase, init=init)
+    seq = spec.get("frontend_seq")
+    if seq:
+        fe = run_frontend(cfg, params, seq)
+        print(f"{name} {cfg.frontend} frontend ({card}): {json.dumps(fe)}",
+              flush=True)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(8)
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch import specs
+        shape = ShapeConfig(cfg.frontend, seq, B, "prefill")
+        batch = {k: _seeded(v, cfg.vocab, gen)
+                 for k, v in specs.batch_struct(cfg, shape).items()}
+        dec = specs.decode_struct(cfg, shape)
+        embed = _seeded(dec["embed"], cfg.vocab, gen) if "embed" in dec \
+            else None
+        steps_ = step_breakdown(cfg, params, seq, batch=batch, embed=embed)
+        print(f"{name} {cfg.frontend} step breakdown: {json.dumps(steps_)}",
+              flush=True)
+        del batch, embed
+        out["frontend"] = fe
+    del params
+    torch.cuda.empty_cache()
+    cpu = {"tokens": check_against_cpu(cfg, spec["cpu_prompt"], 0,
+                                       batch=spec["cpu_batch"])}
+    if seq:
+        cpu[cfg.frontend] = check_against_cpu(
+            cfg, spec["cpu_prompt"], 0, batch=spec["cpu_batch"],
+            frontend=True)
+    out["cpu"] = cpu
+    print(f"{name}: 2-layer full-width (batch {spec['cpu_batch']}, prompt "
+          f"{spec['cpu_prompt']}) vs CPU bf16 plain: max abs logit err / max "
+          f"abs logit {json.dumps(cpu)}", flush=True)
+    torch.cuda.empty_cache()
+    print(f"{name}: path done in {time.monotonic() - t0:.1f} s", flush=True)
+    return out
+
+
+def profiled_big_serve(card: str) -> dict:
+    """``PROFILED_BIG`` served under the port's profiler at full width
+    and depth (``run_serve``): export
+    and registration seconds and ops, and PC samples under both steps
+    that reach each kernel's dot_general leaves (``check_profile``; the
+    decode kernel's at G = 12).  Runs after every torch.profiler timing
+    (see ``time_path``).  Returns the serve result."""
+    from repro_torch.configs import get_config
+    cfg = get_config(PROFILED_BIG)
+    params = init_params(PROFILED_BIG)
+    srv = run_serve(cfg, params, BIG_PATHS[PROFILED_BIG]["prompt"])
+    del params
+    torch.cuda.empty_cache()
+    print(f"serve {cfg.name} under the port's profiler ({card}), "
+          f"{cfg.n_layers} layers: wall {srv['wall_s']:.2f} s (incl. "
+          f"warm-up, export and registration), prefill "
+          f"{srv['prefill_ms']:.3f} ms/batch, decode {srv['decode_ms']:.3f} "
+          f"ms/step; launches {json.dumps(srv['launches'])}", flush=True)
+    prof = check_profile(cfg, srv["paths"])
+    print(f"profile {cfg.name} ({cfg.n_layers} layers): {json.dumps(prof)}",
+          flush=True)
+    return dict(srv, profile=prof)
 
 
 def run_sweep_on_card() -> list:
@@ -1492,8 +1902,9 @@ def time_train_kernels(name: str) -> dict:
 
 def time_train(name: str) -> dict:
     """A train step of one training path under torch.profiler, before any
-    profiled run (see ``time_path``): seeded full-width, full-depth
-    weights, tempered as the CPU checks temper them (``_temper``), the
+    profiled run (see ``time_path``): seeded full-width weights at the
+    path's depth (``_config``), tempered as the CPU checks temper them
+    (``_temper``), the
     pipeline's first batch repeated, ``OptConfig(warmup_steps=1)``; one
     warm-up step, ``TRAIN_TIMED_STEPS`` steps under the profiler, one
     more (and for ``SCOPED_PATHS`` one under ``scope_device_ms``).  The
@@ -1506,11 +1917,10 @@ def time_train(name: str) -> dict:
     from 11.75 to 6.43 in 6 steps of lr 3e-4.  Returns {host wall ms,
     device busy ms, idle share, tokens/s, device kernels per step, the
     port's kernels' ms and share, top kernels, losses}."""
-    from repro_torch.configs import get_config
     from repro_torch.launch import steps as steps_mod
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
-    cfg = get_config(name)
+    cfg = _config(name)
     spec = TRAIN_PATHS[name]
     b, seq = spec["batch"], spec["seq"]
     gen = torch.Generator(device="cuda")
@@ -1606,10 +2016,10 @@ def scope_device_ms(step) -> dict:
 
 def train_path(name: str) -> dict:
     """The training main path: ``launch.train.train`` at full width and
-    depth, seeded weights, every kernel launch counter set to 0 just
-    before and read just after; the counts must be the remat policy's
-    (layers x steps x ``LAUNCHES_PER_LAYER`` for each kernel the layers
-    run) and every loss finite.  Under the port's profiler (qwen2,
+    the path's depth (``_config``), seeded weights, every kernel launch
+    counter set to 0 just before and read just after; the counts must be
+    the remat policy's (layers x steps x ``LAUNCHES_PER_LAYER`` for each
+    kernel the layers run) and every loss finite.  Under the port's profiler (qwen2,
     granite-moe): the registered train step has one custom-call per
     launch of a step, and the aggregated database
     (``build/chip_smoke/db/<model>-train``) has PC samples under the
@@ -1617,12 +2027,11 @@ def train_path(name: str) -> dict:
     flash_attention.cu, and in the ``fwd_bwd`` and ``optimizer`` scopes
     (``scope.shares``: each scope's share of the samples under the
     placeholder).  Returns the run's numbers."""
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import HYBRID, ShapeConfig
     from repro_torch.core import scope, viewer
     from repro_torch.kernels import ops
     from repro_torch.launch.train import train
-    cfg = get_config(name)
+    cfg = _config(name)
     spec = TRAIN_PATHS[name]
     prof_dir = None
     if spec["profile"]:
@@ -1874,9 +2283,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    start = time.monotonic()
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import get_config
     card = card_line()
     print(f"card: {card}", flush=True)
+
+    def phase(what: str) -> None:
+        print(f"phase: {what} done at {time.monotonic() - start:.1f} s",
+              flush=True)
     seconds, ptxas = build_kernels()
     print(f"build_s: {seconds:.1f}", flush=True)
     for line in ptxas:
@@ -1884,36 +2299,56 @@ def main() -> int:
     sass = check_sass()
     print(f"sass: every dot_general leaf's line has SASS instructions: "
           f"{json.dumps(sass)}", flush=True)
+    phase("build and sass")
     errs, ratios = check_kernels()
     print(f"kernel checks passed: max abs err {errs}, largest row "
           f"err / row max {ratios}", flush=True)
+    torch.cuda.empty_cache()
     train_errs, grad_errs = check_kernel_grads()
     print(f"kernel forward checks at the training shapes passed: max abs "
           f"err {json.dumps({'/'.join(k): v for k, v in train_errs.items()})}"
           f"; gradient checks (the recompute's wiring) passed: max abs err "
           f"{grad_errs}; the forward ran the port's kernels, the backward "
           f"none", flush=True)
+    phase("kernel checks")
     # every timing under torch.profiler before the first profiled run:
-    # the training kernels first, the windows of whole steps last
+    # every path's kernels first, the windows of whole steps after
+    names = list(PATHS) + list(SERVING_PATHS)
+    times = {name: time_path(name) for name in names}
+    times.update(time_big_kernels())
     train_times = {}
     for name in TRAIN_PATHS:
         train_times[name] = time_train_kernels(name)
         for kname, (t, calls) in train_times[name].items():
             print(f"{name} train {kname}: device {json.dumps(t)}; "
                   f"back-to-back call {json.dumps(calls)}", flush=True)
-    names = list(PATHS) + list(SERVING_PATHS)
+    phase("kernel timings")
+    # the reference's single-card configurations, one at a time, before
+    # the four models below are allocated (qwen3-32b's weights alone are
+    # 65.5 GB) and before any profiled serve
+    big = {name: big_path(name, card) for name in BIG_PATHS}
+    phase("single-card configurations")
     params = {name: init_params(name) for name in names}
-    times = {name: time_path(name, params[name]) for name in names}
+    for name in names:
+        breakdown_path(name, params[name])
+    phase("step breakdowns")
     step_times = {}
     for name in TRAIN_PATHS:
         step_times[name] = time_train(name)
         print(f"{name} train step ({card}): "
               f"{json.dumps(step_times[name])}", flush=True)
+    phase("train step timings")
     runs = {name: serve_path(name, params.pop(name)) for name in PATHS}
+    phase("profiled serves")
     runs.update({name: serving_path(name, params.pop(name))
                  for name in SERVING_PATHS})
+    phase("serving-profiler serves")
     run_sweep_on_card()
+    phase("sweep")
     train_runs = training_phase(card, step_times)
+    phase("training")
+    profiled_big_serve(card)
+    phase("profiled single-card serve")
 
     kernels = []
     for path, run in runs.items():
@@ -1923,6 +2358,17 @@ def main() -> int:
                 source=SOURCES[kname][0], replaces=SOURCES[kname][1],
                 launches=run["launches"][kname], max_abs_err=errs[kname],
                 **t))
+    for name, res in big.items():
+        paths = [(name, res["serve"]["launches"])]
+        if "frontend" in res:
+            paths.append((f"{name}:{get_config(name).frontend}",
+                          res["frontend"]["launches"]))
+        for path, launches in paths:
+            for kname, (t, _) in times[path].items():
+                kernels.append(dict(
+                    name=kname, path=path, route="cuda",
+                    source=SOURCES[kname][0], replaces=SOURCES[kname][1],
+                    launches=launches[kname], max_abs_err=errs[kname], **t))
     for name, run in train_runs.items():
         for kname, (t, _) in train_times[name].items():
             kernels.append(dict(

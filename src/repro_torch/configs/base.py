@@ -1,12 +1,16 @@
 """Config system for repro_torch: the JAX package's ``ModelConfig`` copied
 so that the port imports nothing of ``repro``.
 
-Every architecture the port serves is a ``ModelConfig`` registered under
-its public id (e.g. ``"qwen2-1.5b"``).  Configs are plain frozen
-dataclasses, hashable and trivially serializable.  Registered so far:
-dense GQA (qwen2-1.5b), hybrid attention + mamba (hymba-1.5b), MoE
-(granite-moe-1b-a400m) and xLSTM (xlstm-125m); each file is a copy of the
-JAX package's (``repro_torch.copies``).
+Every architecture of the JAX package is a ``ModelConfig`` registered
+under its public id (e.g. ``"qwen3-32b"``).  Configs are plain frozen
+dataclasses, hashable and trivially serializable.  All ten are
+registered, each file a copy of the JAX package's (``repro_torch.copies``):
+dense GQA (qwen2-1.5b, qwen3-32b with qk-norm, yi-6b, starcoder2-15b),
+hybrid attention + mamba (hymba-1.5b), MoE (granite-moe-1b-a400m,
+llama4-maverick-400b-a17b with a shared expert every second layer),
+xLSTM (xlstm-125m) and the two stub frontends: vlm patch embeddings
+before text (llava-next-mistral-7b) and audio frame embeddings in place
+of tokens (musicgen-large).
 """
 from __future__ import annotations
 
@@ -203,4 +207,6 @@ def list_configs() -> Tuple[str, ...]:
 def _load_all() -> None:
     # import side effect registers each config
     from repro_torch.configs import (  # noqa: F401
-        granite_moe_1b_a400m, hymba_1_5b, qwen2_1_5b, xlstm_125m)
+        xlstm_125m, yi_6b, qwen2_1_5b, starcoder2_15b, qwen3_32b,
+        llava_next_mistral_7b, llama4_maverick_400b_a17b,
+        granite_moe_1b_a400m, musicgen_large, hymba_1_5b)

@@ -50,7 +50,9 @@ COPIES = (
     "serving/stats.py", "serving/telemetry.py", "serving/live.py",
     # the configurations the port serves (published widths, unchanged)
     "configs/qwen2_1_5b.py", "configs/granite_moe_1b_a400m.py",
-    "configs/xlstm_125m.py",
+    "configs/xlstm_125m.py", "configs/qwen3_32b.py", "configs/yi_6b.py",
+    "configs/starcoder2_15b.py", "configs/llava_next_mistral_7b.py",
+    "configs/musicgen_large.py", "configs/llama4_maverick_400b_a17b.py",
     # the fleet daemon that takes the serving profiler's telemetry
     "fleet/__init__.py", "fleet/__main__.py", "fleet/cli.py",
     "fleet/client.py", "fleet/daemon.py", "fleet/envelope.py",

@@ -31,11 +31,14 @@
 //     refill the ring as it drains), and computes on the first step while
 //     the rest land.  Nothing at or beyond `length` is read;
 //   - both products on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
-//     accumulate): A is the G <= 8 q rows of the kv head, zero-padded to
-//     16; K fragments come from ldmatrix, V fragments from ldmatrix.trans,
-//     and P is re-packed from the S accumulators in registers, as in the
-//     prefill kernel's fragments.  The 4 warps merge their (m, l, acc)
-//     through shared memory, every thread taking a share.
+//     accumulate): A is the G <= 16 q rows of the kv head, zero-padded to
+//     the m16 tile (each thread holds rows g and g + 8 of its quad's
+//     fragments, and both are carried through the softmax and the
+//     merges); K fragments come from ldmatrix, V fragments from
+//     ldmatrix.trans, and P is re-packed from the S accumulators in
+//     registers, as in the prefill kernel's fragments.  The 4 warps merge
+//     their (m, l, acc) through shared memory, every thread taking a
+//     share.  G > 16 would need a second m16 tile of q rows.
 
 #include <cooperative_groups.h>
 
@@ -48,7 +51,7 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxG = 8;   // q heads per kv head
+constexpr int kMaxG = 16;  // q heads per kv head: one m16 tile of q rows
 constexpr int kStep = 16;  // keys per MMA step
 constexpr int kMaxSplits = 8;  // the largest portable cluster
 
@@ -65,6 +68,12 @@ constexpr int smem_bytes(int n_stages) {
   // Q (16 padded rows) + per warp n_stages steps of K and V
   return (16 + 2 * kWarps * n_stages * kStep) * (D + 8) * 2;
 }
+// after the loop the K/V ring holds the warps' fp32 partial acc of every
+// q row: the shallowest ring must be large enough
+static_assert(smem_bytes<64>(1) - 16 * (64 + 8) * 2 >=
+                  kWarps * kMaxG * 64 * 4, "wAcc overruns the ring (D 64)");
+static_assert(smem_bytes<128>(1) - 16 * (128 + 8) * 2 >=
+                  kWarps * kMaxG * 128 * 4, "wAcc overruns the ring (D 128)");
 
 template <int D, int NST>
 __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
@@ -147,7 +156,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
 #pragma unroll
   for (int n = 0; n < D / 8; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  // this thread's rows: g and g + 8 (only rows < G are real)
+  // this thread's rows: g and g + 8 (rows < G are real, the rest zero)
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
 
   for (int step = 0; step < n_steps; ++step) {  // kstruct: grid:kv_blocks
@@ -226,18 +235,24 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
     cp_async_commit();
   }
 
-  // the warps' partials -> shared memory (the ring is free now)
-  const float l_w = quad_sum(l_r[0]);
+  // the warps' partials -> shared memory (the ring is free now): row g
+  // from acc[n][0..1], row g + 8 from acc[n][2..3]
+  const float l_w[2] = {quad_sum(l_r[0]), quad_sum(l_r[1])};
   __syncthreads();
-  if (g < G) {
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      wAcc[(warp * kMaxG + g) * D + n * 8 + 2 * t] = acc[n][0];
-      wAcc[(warp * kMaxG + g) * D + n * 8 + 2 * t + 1] = acc[n][1];
-    }
-    if (t == 0) {
-      wM[warp][g] = m_r[0];
-      wL[warp][g] = l_w;
+  for (int row = 0; row < 2; ++row) {
+    const int gr = g + 8 * row;
+    if (gr < G) {
+      float* wa = wAcc + (warp * kMaxG + gr) * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        wa[n * 8] = acc[n][2 * row];
+        wa[n * 8 + 1] = acc[n][2 * row + 1];
+      }
+      if (t == 0) {
+        wM[warp][gr] = m_r[row];
+        wL[warp][gr] = l_w[row];
+      }
     }
   }
   __syncthreads();
@@ -346,7 +361,7 @@ cudaError_t launch_d(const void* q, const void* kc, const void* vc, void* out,
 }  // namespace repro_torch
 
 // q (B,H,D), caches (B,Smax,Hkv,D), out (B,H,D): bf16, contiguous,
-// D = 64 or 128, H/Hkv <= 8.  Split s covers keys [s*keys_per_split,
+// D = 64 or 128, H/Hkv <= 16.  Split s covers keys [s*keys_per_split,
 // (s+1)*keys_per_split) clipped to `length`; n_splits <= 8 is the
 // cluster size.  Returns the launch's cudaError_t (0 on success).
 extern "C" int flash_decode_fwd_bf16(const void* q, const void* kc,

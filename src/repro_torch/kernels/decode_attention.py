@@ -38,7 +38,8 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)  # the head dims the kernel is built for
                        # (launch<64> and launch<128>)
-MAX_GROUP = 8          # q heads per kv head the kernel holds (kMaxG)
+MAX_GROUP = 16         # q heads per kv head the kernel holds (kMaxG):
+                       # one m16 tile of q rows
 MAX_SPLITS = 8         # splits per (batch, kv head): one portable cluster
 MIN_KEYS = 64          # keys per split at least: one 16-key step a warp
 

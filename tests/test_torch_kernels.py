@@ -133,6 +133,8 @@ DECODE_SWEEP = [                     # tests/test_decode_kernel.py:14-18
     (1, 4, 4, 64, 512),              # MHA
     (2, 8, 2, 64, 1024),             # GQA 4:1
     (1, 8, 1, 32, 512),              # MQA
+    (2, 48, 4, 128, 544),            # G = 12 (starcoder2-15b's heads)
+    (1, 32, 2, 64, 300),             # G = 16, the decode kernel's limit
 ]
 
 

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.configs import list_configs as jax_list_configs
 from repro.models import layers as JL
 from repro_torch.configs import get_config, list_configs
 from repro_torch.convert import params_from_jax
@@ -118,14 +119,22 @@ def test_moe_and_xlstm_configs_match_jax(name, reduced):
     _config_matches_jax(name, reduced)
 
 
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("name", jax_list_configs())
+def test_every_config_matches_jax(name, reduced):
+    _config_matches_jax(name, reduced)
+
+
 def _config_matches_jax(name, reduced):
     t, j = get_config(name), jax_get_config(name)
     if reduced:
         t, j = t.reduced(), j.reduced()
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert t.blocks == j.blocks and t.n_params() == j.n_params()
-    assert list_configs() == ("granite-moe-1b-a400m", "hymba-1.5b",
-                              "qwen2-1.5b", "xlstm-125m")
+    assert list_configs() == jax_list_configs() == (
+        "granite-moe-1b-a400m", "hymba-1.5b", "llama4-maverick-400b-a17b",
+        "llava-next-mistral-7b", "musicgen-large", "qwen2-1.5b", "qwen3-32b",
+        "starcoder2-15b", "xlstm-125m", "yi-6b")
 
 
 def test_params_from_jax_bf16_and_readonly():
