@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Every path runs at published widths and full depth but hymba-1.5b's
-and xlstm-125m's, which run at 8 of 32 and 6 of 12 layers
-(``CUT_DEPTH``).  Phases, each of which raises (non-zero exit, no result
+Every path runs at published widths and full depth but qwen2-1.5b's,
+granite-moe-1b-a400m's, hymba-1.5b's and xlstm-125m's, which run at 8 of
+28, 8 of 24, 8 of 32 and 6 of 12 layers (``CUT_DEPTH``), and the
+profiled starcoder2-15b serve of 10, at 10 of 40.  Phases, each of which raises (non-zero exit, no result
 line) on failure:
 
 1. refuse to run without CUDA; print the card's name and power limit;
@@ -22,8 +23,12 @@ line) on failure:
    granite-moe at D = 64, G = 2, and the single-card configurations of
    phase 3b: G = 8 at 64 q heads, G = 12, G = 1 at D = 64, llava's vlm
    prefill at S = 6144 and its decode after it) and at each kernel's
-   edges (ragged tiles and splits, small windows, q_offset, G = 1, 8, 12
-   and 16 at both head dims, peaked scores);
+   edges (ragged tiles and splits, small windows, q_offset, G = 1, 8, 12,
+   16, 20, 24 and 32 at both head dims, peaked scores); past 16 q heads a
+   kv head the decode kernel runs tiles of 16 q rows, each bitwise equal
+   to its q heads run alone, and at G <= 16 it gives bitwise the outputs
+   of the kernel before tiles at qwen2's decode shape
+   (``check_decode_tiles``);
    every decode call is repeated and must be bitwise equal, and must run
    exactly one device kernel under torch.profiler; every SSD call
    likewise, with its three device kernels (chunk state, state pass,
@@ -38,8 +43,10 @@ line) on failure:
    depth, one at a time, each freed before the next: qwen3-32b,
    starcoder2-15b, yi-6b, llava-next-mistral-7b and musicgen-large.  For
    each: the bytes ``launch.specs.params_struct`` reckons, the card's free
-   memory and the init's peak (within the weights plus one fp32 slice
-   plus 1 GiB); its steps broken down under torch.profiler as in 4 (its
+   memory, the init's peak (within the weights plus one fp32 slice plus 1
+   GiB) and what it leaves allocated, held exactly (``init_big``: the
+   parameters' blocks only, plus the allocator's unsplit remainders); its
+   steps broken down under torch.profiler as in 4 (its
    kernels, and llava's at its vlm prefill over 6144 positions, are
    timed as in 4 before this phase); ``serve`` without a profiler,
    launch counters set to 0 just before and read just after (exact
@@ -49,19 +56,27 @@ line) on failure:
    followed by 31 decode steps (musicgen's on frame embeddings), exact
    launch counts, finite logits, timed and broken down; the 2-layer
    full-width model against the CPU as in 6, on tokens and, for the two
-   frontends, on their embeddings;
+   frontends, on their embeddings; then, alone on the card, a donated
+   train step of musicgen-large (on tokens and on audio frames, 4 x 512)
+   and of yi-6b (4 x 512; the run fails unless the reckoned peak,
+   ``launch.specs.train_memory``, leaves 2 GiB of the card free), timed
+   as in 4, its ``torch.cuda.max_memory_allocated`` held to the reckoning
+   within 2 GiB;
 4. time a train step of qwen2-1.5b, hymba-1.5b, granite-moe-1b-a400m
    and xlstm-125m at full width under torch.profiler (host wall, device
    busy, idle share, tokens/s, the kernels' share) on a
    repeated batch whose loss must fall, and split one step's device time
    by the train step's named scopes (``fwd_bwd``, its forward and its
-   backward with the remat recompute, ``optimizer``); time each kernel
-   at the training shapes; time each kernel at
+   backward with the remat recompute, ``optimizer``; qwen2's optimizer
+   also with the functional, not donated, step); print each step's peak
+   memory beside its reckoning; time each kernel at the training shapes
+   (the single-card training paths' too); time each kernel at
    each serving path's shapes, its plain version and one
    library call computing the same function where there is one (a
    yardstick the port never calls), beside the least time the card could
    take for the same work (the kernel modules' own ``work`` counts), and
-   the decode kernel at every split count the planner could choose, and
+   the decode kernel at every split count the planner could choose and
+   at G = 24 (two tiles of q rows; no main path), and
    the SSD scan's device time by step; break a serving step's time down
    by device kernel.  All of this runs under torch.profiler before the
    first profiled serve, and every path's kernels (those of 3b too) are
@@ -95,22 +110,32 @@ line) on failure:
 8. run the port's six-scenario serving sweep (``serving.sweep``) on the
    card and check every row's per-request attribution;
 9. train qwen2-1.5b and granite-moe-1b-a400m (6 steps of 4 x 512, under
-   the port's profiler), hymba-1.5b (3 steps of 2 x 1536) and xlstm-125m
-   (6 steps of 4 x 256, the JAX package's CLI defaults) at full width
-   through ``repro_torch.launch.train.train``, launch counters set to 0
+   the port's profiler), hymba-1.5b (3 steps of 2 x 1536), xlstm-125m
+   (6 steps of 4 x 256, the JAX package's CLI defaults), musicgen-large
+   on tokens and on audio frames (4 steps of 4 x 512) and yi-6b (3 steps
+   of 4 x 512, after the reckoning's check of 3b again) at full width through ``repro_torch.launch.train.train``
+   (the donated step), launch counters set to 0
    just before and read just after each: the launch counts the
    remat policy implies, finite losses, one custom-call per launch in the
    registered train step, PC samples under its placeholder and in the
    flash kernel's dot_general leaves, and each named scope's share of
    them (printed beside the scope's device ms from phase 4); one 2-layer
    full-width train step (loss and every gradient leaf) of qwen2,
-   granite-moe and xlstm against the same bf16 weights on the CPU; a
-   resume from an async checkpoint whose first loss is bitwise the
-   uninterrupted run's;
-10. serve starcoder2-15b at full width and depth under the port's
+   granite-moe, xlstm, musicgen-large (both kinds of batch) and yi-6b
+   against the same bf16 weights on the CPU; resumes (hymba,
+   musicgen-large on frames, yi-6b) from an async checkpoint whose first
+   loss is bitwise the uninterrupted run's;
+10. serve starcoder2-15b at full width and 10 layers under the port's
    profiler and check, as in 5, PC samples that reach the decode
    kernel's dot_general leaves at G = 12.  Nothing is timed under
-   torch.profiler after it.
+   torch.profiler after it;
+11. run the eight examples that port the JAX package's examples
+   (``examples/torch_*.py``) with ``--device cuda``, all at once, each
+   exiting 0; ``torch_find_redundant_sync`` finds a context with diff >
+   0, ``torch_blame_analysis`` ranks its stalls as the JAX example does
+   (``host_preprocessing``, then ``runtime_jit_compile``) and
+   ``torch_serve_batch``'s profile has PC samples in the flash prefill
+   and decode kernels' calls.
 
 The line before the last is a JSON object with one entry per kernel and
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -170,14 +195,18 @@ SOURCES = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/ssm_scan.py:34")}
 
 
-# hymba and xlstm run every path (serving, the step breakdowns, training)
-# at a cut depth, 8 of 32 layers and one period of 6 of 12, at published
-# widths: their host-bound steps and exports took the most wall per check
-# of the script (hymba's serving export 47 s, a full-depth train step 3.4 s
-# for 0.94 s of device time; xlstm's export 46 s, 64,000 device kernels a
-# train step), and the single-card configurations' serves need the room
-# under the time limit
-CUT_DEPTH = {"hymba-1.5b": 8, "xlstm-125m": 6}
+# the first four paths run every path (serving, the step breakdowns,
+# training) at a cut depth and published widths: hymba 8 of 32 layers and
+# xlstm one period of 6 of 12, whose host-bound steps and exports took the
+# most wall per check of the script (hymba's serving export 47 s, a
+# full-depth train step 3.4 s for 0.94 s of device time; xlstm's export
+# 46 s, 64,000 device kernels a train step); qwen2 8 of 28 and granite-moe
+# 8 of 24, whose profiled exports (a step's export 19-46 s, about linear in
+# layers) took 200 s of a run whose host wall varies 1.3-1.7x between
+# machines, so that the single-card configurations' serves and training
+# keep the room under the time limit
+CUT_DEPTH = {"qwen2-1.5b": 8, "granite-moe-1b-a400m": 8, "hymba-1.5b": 8,
+             "xlstm-125m": 6}
 
 
 def _config(name: str):
@@ -346,7 +375,12 @@ def check_kernels() -> tuple:
             (48, 4, 128, 544, (1, 17, 100, 527)),
             (12, 1, 64, 300, (1, 31, 299)), (16, 1, 128, 600, (1, 63, 600)),
             (32, 2, 64, 600, (9, 257, 600)),
-            (32, 2, 128, 1000, (1, 333, 999))):
+            (32, 2, 128, 1000, (1, 333, 999)),
+            # past one tile of q rows (the kernel takes any G): G = 20 (a
+            # partial second tile), 24 and 32 at both head dims
+            (40, 2, 64, 544, (1, 100, 527)),
+            (48, 2, 64, 600, (9, 257, 600)), (96, 4, 128, 544, (1, 100, 527)),
+            (64, 2, 64, 1000, (1, 333, 999)), (32, 1, 128, 600, (1, 63, 600))):
         for q_scale, kv_scale in ((0.5, 0.5), (4.0, 1.0)):
             q = _randn((B, h, d), gen, q_scale)
             kc = _randn((B, smax, hkv, d), gen, kv_scale)
@@ -439,12 +473,17 @@ def check_kernels() -> tuple:
         raise AssertionError(f"ssm_scan ran {distinct} distinct device "
                              f"kernels, {per_call} per call; want "
                              f"{SSM_STEPS}")
-    # one device kernel per decode call, at the paths' shapes and at G = 16
+    print(f"flash_decode q tiles, bitwise: "
+          f"{json.dumps(check_decode_tiles(gen))}", flush=True)
+    # one device kernel per decode call, at the paths' shapes, at G = 16
+    # and past one tile of q rows (G = 24 and 32)
     for h, hkv, d, smax in ((12, 2, 128, 544), (25, 5, 64, 1024),
                             (16, 8, 64, 544), (64, 8, 128, 544),
                             (48, 4, 128, 544), (32, 32, 64, 544),
                             (32, 8, 128, 6176), (32, 2, 64, 600),
-                            (32, 2, 128, 600)):
+                            (32, 2, 128, 600), (48, 2, 64, 600),
+                            (96, 4, 128, 544), (64, 2, 64, 1000),
+                            (32, 1, 128, 600)):
         q = _randn((B, h, d), gen, 0.5)
         kc = _randn((B, smax, hkv, d), gen, 0.5)
         distinct, per_call = device_kernels(
@@ -454,6 +493,79 @@ def check_kernels() -> tuple:
                                  f"device kernels, {per_call} per call; "
                                  f"want one")
     return errs, ratios
+
+
+# the decode kernel's output at qwen2's decode shape (B = 4, 12 / 2 heads,
+# D = 128, length 528 of 544, the planner's 8 splits of 66 keys) on
+# ``_decode_inputs(0)``, as the kernel gave it before it had tiles of q
+# rows (when it held G <= 16), on an "NVIDIA H100 80GB HBM3": sha256 of
+# the bf16 bytes
+DECODE_BEFORE_TILES = (
+    (4, 12, 2, 128, 544, 528),
+    "410a5fcd71b88824cd1fdd409fd5277fb2c07be3404276da06fb8e01225a302a")
+
+
+def _decode_inputs(seed: int, b: int, h: int, hkv: int, d: int,
+                   smax: int) -> tuple:
+    """q (b, h, d) and caches (b, smax, hkv, d), bf16 on the card, from
+    numpy normals (the same bytes on every card and torch version)."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(torch.bfloat16).cuda()
+        for shape in ((b, h, d), (b, smax, hkv, d), (b, smax, hkv, d)))
+
+
+def check_decode_tiles(gen) -> dict:
+    """The decode kernel's tiles of q rows, bitwise.  Past 16 q heads a
+    kv head (G = 24, 32 at both head dims, and G = 20's partial tile),
+    each tile's rows equal the kernel run on that tile's q heads alone
+    (G <= 16, one tile) at the same splits; at G <= 16 the kernel gives
+    the outputs it gave before tiles (``DECODE_BEFORE_TILES``: qwen2's
+    decode shape at the planner's splits, sha256 of the bytes), and the
+    planner's splits are the ones it chose before (``plan_splits`` with
+    one tile).  Returns {case: tiles}."""
+    import hashlib
+    from repro_torch.kernels import decode_attention as fd
+    out = {}
+    for h, hkv, d, smax, length, splits in (
+            (48, 2, 64, 600, 577, (8, 73)), (96, 4, 128, 544, 528, (4, 132)),
+            (64, 2, 64, 1000, 999, (8, 125)), (64, 2, 128, 600, 450, (2, 225)),
+            (40, 2, 64, 544, 300, (5, 60))):
+        q = _randn((B, h, d), gen, 4.0)
+        kc = _randn((B, smax, hkv, d), gen)
+        vc = _randn((B, smax, hkv, d), gen)
+        full = _decode_at(q, kc, vc, length, *splits)
+        g = h // hkv
+        tiles = fd.q_tiles(h, hkv)
+        for t in range(tiles):
+            rows = torch.arange(hkv, device="cuda")[:, None] * g \
+                + torch.arange(t * fd.Q_TILE, min(g, (t + 1) * fd.Q_TILE),
+                               device="cuda")
+            alone = _decode_at(q[:, rows.flatten()].contiguous(), kc, vc,
+                               length, *splits)
+            torch.cuda.synchronize()
+            if not torch.equal(full[:, rows.flatten()], alone):
+                raise AssertionError(f"flash_decode tile {t} of "
+                                     f"{(h, hkv, d)} differs from its q "
+                                     f"heads run alone")
+        out[f"H{h}/Hkv{hkv}/D{d}"] = tiles
+    (b, h, hkv, d, smax, length), want = DECODE_BEFORE_TILES
+    q, kc, vc = _decode_inputs(0, b, h, hkv, d, smax)
+    plan = fd.plan_splits(b, hkv, length, fd._sm_count(q.device),
+                          fd.q_tiles(h, hkv))
+    if plan != (8, 66):
+        raise AssertionError(f"flash_decode: the planner now cuts qwen2's "
+                             f"decode into {plan}, before tiles (8, 66)")
+    got = _decode_at(q, kc, vc, length, *plan)
+    torch.cuda.synchronize()
+    digest = hashlib.sha256(got.view(torch.int16).cpu().numpy().tobytes()
+                            ).hexdigest()
+    if digest != want:
+        raise AssertionError(f"flash_decode at G <= 16 no longer gives the "
+                             f"outputs of the kernel before tiles: sha256 "
+                             f"{digest}, want {want}")
+    out["before_tiles"] = digest
+    return out
 
 
 def device_kernels(fn, iters: int = 5, attempts: int = 3) -> tuple:
@@ -602,7 +714,8 @@ def time_kernels(cfg, prompt: int) -> tuple:
         splits.setdefault(n, device_ms(
             lambda n=n, per=per: _decode_at(qd, kc, vc, length, n, per),
             iters=50))
-    plan = fd.plan_splits(B, hkv, length, fd._sm_count(qd.device))
+    plan = fd.plan_splits(B, hkv, length, fd._sm_count(qd.device),
+                          fd.q_tiles(h, hkv))
     if HYBRID in cfg.blocks:
         # serve's ssm_chunk
         fns, flops, nbytes = _ssm_fns(gen, B, prompt, h, d, cfg.ssm_state,
@@ -1416,9 +1529,46 @@ BIG_PATHS = {
     "musicgen-large": dict(prompt=512, frontend_seq=512, cpu_batch=2,
                            cpu_prompt=64)}
 # the profiled serve after the training phase: starcoder2-15b's decode
-# kernel at G = 12 under the port's profiler, at full depth (each 40-layer
-# step exported in 15-21 s on the card's host)
+# kernel at G = 12 under the port's profiler, at full width and 10 of its
+# 40 layers (at 40, its two steps' exports took 57 s of the card's host)
 PROFILED_BIG = "starcoder2-15b"
+PROFILED_BIG_LAYERS = 10
+
+
+def _live_blocks() -> set:
+    """Addresses of the caching allocator's allocated blocks."""
+    return {blk["address"] for seg in torch.cuda.memory._snapshot()["segments"]
+            for blk in seg["blocks"] if blk["state"] == "active_allocated"}
+
+
+def _init_blocks(before: set, params) -> dict:
+    """The allocated blocks that are new since ``before``, from the
+    caching allocator's snapshot: those that hold a leaf of ``params``
+    (their bytes, the bytes the leaves requested, and each block whose
+    size exceeds its request: the allocator hands a request a whole
+    cached block when splitting it would leave 1 MiB or less) and the
+    stray ones that hold none (bytes, request, the innermost frames of
+    the allocation while the allocator records its history)."""
+    from repro_torch.tree import leaves
+    ptrs = {t.untyped_storage().data_ptr() for t in leaves(params)}
+    out = dict(param_bytes=0, requested=0, unsplit=[], stray=[])
+    for seg in torch.cuda.memory._snapshot()["segments"]:
+        for blk in seg["blocks"]:
+            if blk["state"] != "active_allocated" or blk["address"] in before:
+                continue
+            size, req = blk["size"], blk.get("requested_size", blk["size"])
+            if blk["address"] in ptrs:
+                out["param_bytes"] += size
+                out["requested"] += req
+                if size != req:
+                    out["unsplit"].append(dict(bytes=size, requested=req))
+                continue
+            frames = [f"{os.path.basename(f.get('filename', ''))}:"
+                      f"{f.get('line')}:{f.get('name', '')[:80]}"
+                      for f in blk.get("frames", [])][:12]
+            out["stray"].append(dict(bytes=size, requested=req,
+                                     frames=frames))
+    return out
 
 
 def init_big(name: str) -> tuple:
@@ -1428,7 +1578,15 @@ def init_big(name: str) -> tuple:
     before it) must stay within the weights plus the largest fp32 slice
     that ``dense_init`` draws (a period's slice of a stacked leaf, or the
     whole embed or unembed) plus 1 GiB: the check of its slice-at-a-time
-    draw.  Returns (params, {weights, largest slice, peak, free before})."""
+    draw.  What it leaves allocated is held exactly: no allocated block
+    but the parameters' (``_init_blocks``, from the allocator's snapshot),
+    their requests summing to ``params_struct``'s bytes, and the
+    allocated bytes those bytes plus the allocator's unsplit remainders
+    (a block handed whole to a request it exceeds by 1 MiB or less:
+    qwen3-32b's embed of 1,555,824,640 bytes takes a segment of 742 x 2
+    MiB and leaves 262,144 bytes unsplit; such remainders depend on what
+    the pool held before).  Returns (params, {weights, largest slice,
+    peak, free before, the blocks})."""
     from repro_torch.configs import get_config
     from repro_torch.launch import specs
     from repro_torch.tree import leaves_with_paths
@@ -1444,17 +1602,26 @@ def init_big(name: str) -> tuple:
           f"fp32 slice {slice_fp32} bytes); card free {free} of {total} "
           f"bytes", flush=True)
     before = torch.cuda.memory_allocated()
+    live = _live_blocks()
     torch.cuda.reset_peak_memory_stats()
+    torch.cuda.memory._record_memory_history(max_entries=100_000,
+                                             stacks="all")
     t0 = time.monotonic()
     params = init_params(name)
     torch.cuda.synchronize()
     seconds = time.monotonic() - t0
     peak = torch.cuda.max_memory_allocated() - before
     got = torch.cuda.memory_allocated() - before
+    blocks = _init_blocks(live, params)
+    torch.cuda.memory._record_memory_history(enabled=None)
     info = dict(weights=weights, allocated=got, init_peak=peak,
                 largest_fp32_slice=slice_fp32, free_before=free,
-                init_s=seconds)
+                init_s=seconds, blocks=blocks)
     print(f"{name}: init on the card: {json.dumps(info)}", flush=True)
+    if blocks["stray"] or blocks["requested"] != weights \
+            or got != blocks["param_bytes"]:
+        raise AssertionError(f"{name}: allocated {got} bytes after init, "
+                             f"params_struct {weights}: {json.dumps(blocks)}")
     if peak > weights + slice_fp32 + 2 ** 30:
         raise AssertionError(f"{name}: the init's peak {peak} exceeds the "
                              f"weights {weights} by more than one fp32 "
@@ -1597,6 +1764,30 @@ def time_big_kernels() -> dict:
     return out
 
 
+def time_decode_past_a_tile() -> dict:
+    """The decode kernel past one tile of q rows, where no main path takes
+    it: G = 24 (96 / 4 heads, D = 128, length 528 of 544, two tiles, so
+    the kernel reads the caches twice against the bound's once), timed as
+    ``time_kernels`` times a path's decode.  Returns its times."""
+    from repro_torch.kernels import decode_attention as fd
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    b, h, hkv, d, smax, length = B, 96, 4, 128, 544, 528
+    q = _randn((b, h, d), gen, 0.5)
+    kc = _randn((b, smax, hkv, d), gen, 0.5)
+    vc = _randn((b, smax, hkv, d), gen, 0.5)
+    kl = kc[:, :length].transpose(1, 2)
+    vl = vc[:, :length].transpose(1, 2)
+    fns = dict(ms=lambda: ops.flash_decode(q, kc, vc, length),
+               plain_ms=lambda: fd.flash_decode_plain(q, kc, vc, length),
+               library_ms=lambda: F.scaled_dot_product_attention(
+                   q[:, :, None], kl, vl, enable_gqa=True))
+    t, _ = _timed(fns, *fd.work(b, h, hkv, d, length))
+    return dict(t, shape=[b, h, hkv, d, smax, length],
+                tiles=fd.q_tiles(h, hkv))
+
+
 def big_path(name: str, card: str) -> dict:
     """One of ``BIG_PATHS`` at full width and depth on the card, alone:
     the init and its peak memory (``init_big``), its steps broken down
@@ -1666,14 +1857,18 @@ def big_path(name: str, card: str) -> dict:
 
 def profiled_big_serve(card: str) -> dict:
     """``PROFILED_BIG`` served under the port's profiler at full width
-    and depth (``run_serve``): export
+    and ``PROFILED_BIG_LAYERS`` layers (``run_serve``): export
     and registration seconds and ops, and PC samples under both steps
     that reach each kernel's dot_general leaves (``check_profile``; the
     decode kernel's at G = 12).  Runs after every torch.profiler timing
     (see ``time_path``).  Returns the serve result."""
     from repro_torch.configs import get_config
-    cfg = get_config(PROFILED_BIG)
-    params = init_params(PROFILED_BIG)
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config(PROFILED_BIG),
+                              n_layers=PROFILED_BIG_LAYERS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = T.init_params(gen, cfg)
     srv = run_serve(cfg, params, BIG_PATHS[PROFILED_BIG]["prompt"])
     del params
     torch.cuda.empty_cache()
@@ -1741,14 +1936,76 @@ TRAIN_PATHS = {"qwen2-1.5b": dict(batch=4, seq=512, steps=6, profile=True),
                                   cpu_blocks=("mlstm", "slstm"),
                                   cpu_checks=(("float32", True),
                                               ("bfloat16", False)))}
+# the reference's single-card configurations that train on one card with
+# the donated step, at full width and depth: musicgen-large
+# on token batches (its EnCodec codebook entries; the frontend off) and on
+# audio-frame batches (frame embeddings in place of tokens), 4 x 512, and
+# yi-6b at 4 x 512, the largest batch of 4, 2 and 1 whose reckoned peak
+# (``launch.specs.train_memory``: 81.02 GB) leaves ``TRAIN_HEADROOM`` of
+# the 84.1 GB an H100 80GB HBM3 reports free; ``reckon_train`` holds each
+# run to that before it starts.  Each is timed with nothing else on the
+# card, after the single-card serves
+BIG_TRAIN_PATHS = {
+    "musicgen-large:tokens": dict(batch=4, seq=512, steps=4, profile=False),
+    "musicgen-large:audio": dict(batch=4, seq=512, steps=4, profile=False),
+    "yi-6b": dict(batch=4, seq=512, steps=3, profile=False)}
+TRAIN_HEADROOM = 2 ** 31   # free memory a reckoned train step must leave
+PEAK_TOL = 2 ** 31         # a train step's peak against its reckoning
 # the train steps whose device time is split by named scope
-SCOPED_PATHS = ("qwen2-1.5b", "granite-moe-1b-a400m")
+SCOPED_PATHS = ("qwen2-1.5b", "granite-moe-1b-a400m") + tuple(BIG_TRAIN_PATHS)
+# the train step whose optimizer is also timed functional (not donated)
+DONATION_TIMED = "qwen2-1.5b"
 # forward launches of each kernel per layer and train step under the
 # default remat (``dots_no_batch``): the forward, and its recompute in the
 # backward (the policy saves matmul outputs only); the backward itself is
 # plain torch and launches no kernel of the port
 LAUNCHES_PER_LAYER = 2
 TRAIN_TIMED_STEPS = 2
+
+
+def _train_spec(key: str) -> dict:
+    return {**TRAIN_PATHS, **BIG_TRAIN_PATHS}[key]
+
+
+def _train_config(key: str):
+    """A training path's configuration (``_config``); ``<name>:tokens``
+    is the model with its frontend off (token batches), ``<name>:audio``
+    the model as configured."""
+    name, _, kind = key.partition(":")
+    cfg = _config(name)
+    return dataclasses.replace(cfg, frontend="none") if kind == "tokens" \
+        else cfg
+
+
+def _reckoning(key: str, batch: int):
+    """``launch.specs.train_memory`` of a training path at ``batch``, or
+    None where it does not model the path's blocks."""
+    from repro_torch.launch import specs
+    try:
+        return specs.train_memory(_train_config(key), batch,
+                                  _train_spec(key)["seq"],
+                                  _train_opts(_train_spec(key)["seq"]))
+    except NotImplementedError:
+        return None
+
+
+def reckon_train(key: str) -> dict:
+    """Print a big training path's memory reckoning at its batch beside
+    the card's free memory, and raise unless the reckoned peak leaves
+    ``TRAIN_HEADROOM`` free: the path trains at its batch or the run
+    fails.  Returns the reckoning and the free bytes."""
+    spec = BIG_TRAIN_PATHS[key]
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    reckoned = _reckoning(key, spec["batch"])
+    print(f"train {key}: reckoned bytes (launch.specs.train_memory, "
+          f"{spec['batch']} x {spec['seq']}) {json.dumps(reckoned)}; card "
+          f"free {free} of {total}", flush=True)
+    if reckoned["peak"] + TRAIN_HEADROOM > free:
+        raise AssertionError(f"train {key}: reckoned peak "
+                             f"{reckoned['peak']} bytes leaves less than "
+                             f"{TRAIN_HEADROOM} of {free} free")
+    return dict(reckoning=reckoned, free=free)
 
 
 def _train_opts(seq: int):
@@ -1821,6 +2078,13 @@ def check_kernel_grads() -> tuple:
             ("qwen2-1.5b", 4, 512, 12, 2, 128, 0),
             ("hymba-1.5b", 2, 1536, 25, 5, 64, 1024),
             ("granite-moe-1b-a400m", 4, 512, 16, 8, 64, 0),
+            # the single-card training paths: musicgen-large (G = 1, D =
+            # 64; both kinds of batch give the kernel these shapes) and
+            # yi-6b at each batch it may take
+            ("musicgen-large:tokens", 4, 512, 32, 32, 64, 0),
+            ("musicgen-large:audio", 4, 512, 32, 32, 64, 0),
+            ("yi-6b", 4, 512, 32, 4, 128, 0),
+            ("yi-6b", 2, 512, 32, 4, 128, 0),
             ("edge", 1, 300, 8, 2, 128, 40),
             ("edge", 2, 200, 4, 4, 64, 48)]:
         ins = [_randn(shape, gen).requires_grad_(True) for shape in
@@ -1882,10 +2146,9 @@ def time_train_kernels(name: str) -> dict:
     torch.profiler on an "NVIDIA H100 80GB HBM3" at 700 W dropped one
     record in every later window of 20 calls.  Returns {kernel:
     times}."""
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import HYBRID
-    cfg = get_config(name)
-    b, seq = TRAIN_PATHS[name]["batch"], TRAIN_PATHS[name]["seq"]
+    cfg = _train_config(name)
+    b, seq = _train_spec(name)["batch"], _train_spec(name)["seq"]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -1903,54 +2166,78 @@ def time_train_kernels(name: str) -> dict:
 def time_train(name: str) -> dict:
     """A train step of one training path under torch.profiler, before any
     profiled run (see ``time_path``): seeded full-width weights at the
-    path's depth (``_config``), tempered as the CPU checks temper them
-    (``_temper``), the
-    pipeline's first batch repeated, ``OptConfig(warmup_steps=1)``; one
-    warm-up step, ``TRAIN_TIMED_STEPS`` steps under the profiler, one
-    more (and for ``SCOPED_PATHS`` one under ``scope_device_ms``).  The
-    loss must fall over the steps on the repeated batch.  Untempered, the
-    seeded init's one-hot attention (and xlstm's mLSTM gates) make the
-    loss of one batch jump between nearby weights: on an "NVIDIA H100
-    80GB HBM3" at 700 W granite-moe's moved by up to 0.03 in 6 steps of
-    lr 1e-6, with the same loss on repeats of one step, and xlstm's went
-    to NaN at the fourth step of lr 3e-4; tempered, granite-moe's fell
-    from 11.75 to 6.43 in 6 steps of lr 3e-4.  Returns {host wall ms,
-    device busy ms, idle share, tokens/s, device kernels per step, the
-    port's kernels' ms and share, top kernels, losses}."""
+    path's depth (``_train_config``), tempered as the CPU checks temper
+    them (``_temper``), the pipeline's first batch repeated,
+    ``OptConfig(warmup_steps=1)``, the donated step (``donate=True``, as
+    ``train`` runs it); one warm-up step, ``TRAIN_TIMED_STEPS`` steps
+    under the profiler, one more (and for ``SCOPED_PATHS`` one under
+    ``scope_device_ms``; for ``DONATION_TIMED`` one more of the functional
+    step under it, the optimizer before donation).  The loss must fall
+    over the steps on the repeated batch.  Untempered, the seeded init's
+    one-hot attention (and xlstm's mLSTM gates) make the loss of one
+    batch jump between nearby weights: on an "NVIDIA H100 80GB HBM3" at
+    700 W granite-moe's moved by up to 0.03 in 6 steps of lr 1e-6, with
+    the same loss on repeats of one step, and xlstm's went to NaN at the
+    fourth step of lr 3e-4; tempered, granite-moe's fell from 11.75 to
+    6.43 in 6 steps of lr 3e-4.  ``torch.cuda.max_memory_allocated`` over
+    the profiled steps, less what was allocated before the weights, is
+    the step's peak (``peak_bytes``), printed beside the reckoning
+    (``launch.specs.train_memory``) and, for ``BIG_TRAIN_PATHS``, held to
+    it within ``PEAK_TOL``.  Returns {host wall ms, device busy ms, idle
+    share, tokens/s, device kernels per step, the port's kernels' ms and
+    share, top kernels, losses, peak and reckoned bytes}."""
     from repro_torch.launch import steps as steps_mod
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
-    cfg = _config(name)
-    spec = TRAIN_PATHS[name]
+    cfg = _train_config(name)
+    spec = _train_spec(name)
     b, seq = spec["batch"], spec["seq"]
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = _temper(T.init_params(gen, cfg))
     state = adamw.init(params)
-    step = steps_mod.make_train_step(cfg, _train_opts(seq), adamw.OptConfig(
-        warmup_steps=1, total_steps=100))
+    opt_cfg = adamw.OptConfig(warmup_steps=1, total_steps=100)
+    step = steps_mod.make_train_step(cfg, _train_opts(seq), opt_cfg,
+                                     donate=True)
     batch = _lm_batch(cfg, b, seq)
     losses = []
 
-    def one():
+    def one(fn=step):
         nonlocal params, state
-        params, state, m = step(params, state, batch)
+        params, state, m = fn(params, state, batch)
         losses.append(m["loss"])
 
     one()
+    torch.cuda.reset_peak_memory_stats()
     res = profiled_steps(one, TRAIN_TIMED_STEPS, top=6)
+    peak = torch.cuda.max_memory_allocated() - before
     one()
     if name in SCOPED_PATHS:
         res["scope_ms"] = scope_device_ms(one)
+    if name == DONATION_TIMED:
+        functional = steps_mod.make_train_step(cfg, _train_opts(seq),
+                                               opt_cfg)
+        res["scope_ms_functional"] = scope_device_ms(
+            lambda: one(functional))
     losses = [float(x) for x in losses]
-    del params, state
+    del params, state, batch
     torch.cuda.empty_cache()
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{name} train: losses on a repeated batch "
                              f"{losses} (must be finite and fall)")
-    return dict(res, tokens_per_s=b * seq / res["wall_ms"] * 1e3,
-                port_kernels_share=sum(res["port_kernels_ms"].values())
-                / res["device_busy_ms"], losses=losses)
+    reckoned = _reckoning(name, b)
+    res.update(tokens_per_s=b * seq / res["wall_ms"] * 1e3,
+               port_kernels_share=sum(res["port_kernels_ms"].values())
+               / res["device_busy_ms"], losses=losses, batch=b,
+               peak_bytes=peak,
+               reckoned_peak_bytes=reckoned and reckoned["peak"])
+    if name in BIG_TRAIN_PATHS and abs(peak - reckoned["peak"]) > PEAK_TOL:
+        raise AssertionError(f"{name} train: peak {peak} bytes, reckoned "
+                             f"{json.dumps(reckoned)}: more than "
+                             f"{PEAK_TOL} apart")
+    return res
 
 
 def scope_device_ms(step) -> dict:
@@ -2031,12 +2318,15 @@ def train_path(name: str) -> dict:
     from repro_torch.core import scope, viewer
     from repro_torch.kernels import ops
     from repro_torch.launch.train import train
-    cfg = _config(name)
-    spec = TRAIN_PATHS[name]
+    cfg = _train_config(name)
+    spec = _train_spec(name)
     prof_dir = None
     if spec["profile"]:
         prof_dir = os.path.join(SCRATCH, "train", name)
         shutil.rmtree(prof_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     for kname in KERNELS:
         getattr(ops, kname).launches = 0
     t0 = time.monotonic()
@@ -2046,6 +2336,7 @@ def train_path(name: str) -> dict:
                            opts=_train_opts(spec["seq"]),
                            profile_dir=prof_dir, device="cuda")
     wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() - before
     launches = {kname: getattr(ops, kname).launches for kname in KERNELS}
     per_step = cfg.n_layers * LAUNCHES_PER_LAYER
     want = {"flash_attention": per_step * spec["steps"]
@@ -2056,13 +2347,15 @@ def train_path(name: str) -> dict:
     print(f"train {name}: launches {json.dumps(launches)}, expected "
           f"{json.dumps(want)} ({cfg.n_layers} layers x {spec['steps']} "
           f"steps x {LAUNCHES_PER_LAYER}: forward + remat recompute); "
-          f"losses {losses}; wall {wall:.2f} s", flush=True)
+          f"losses {losses}; wall {wall:.2f} s; peak {peak} bytes (init "
+          f"included)", flush=True)
     if launches != want:
         raise AssertionError(f"{name} train: launch counts {launches}, "
                              f"expected {want}")
     if len(losses) != spec["steps"] or not all(np.isfinite(losses)):
         raise AssertionError(f"{name} train: losses {losses}")
-    out = dict(launches=launches, losses=losses, wall_s=wall)
+    out = dict(launches=launches, losses=losses, wall_s=wall,
+               batch=spec["batch"], peak_bytes=peak)
     if paths is None:
         return out
     with open(paths["measurement"]) as f:
@@ -2143,11 +2436,11 @@ def check_train_against_cpu(name: str, seq: int, window: int,
     each token to the experts the card chose (``_pinned_routing``); the
     number of tokens whose CPU choice differed is returned.  Returns the
     worst leaf and its error ratio."""
-    from repro_torch.configs import get_config
     from repro_torch.launch import steps as steps_mod
     from repro_torch.models import transformer as T
     from repro_torch.tree import leaves_with_paths, tree_map
-    small = dataclasses.replace(get_config(name), n_layers=2, window=window)
+    small = dataclasses.replace(_train_config(name), n_layers=2,
+                                window=window)
     if blocks:
         small = dataclasses.replace(small, block_pattern=tuple(blocks))
     if dtype:
@@ -2200,11 +2493,10 @@ def check_train_resume(name: str, seq: int, batch: int) -> dict:
     (the forward on the card is deterministic; the backward's atomics,
     the embedding's gradient, are not, so later steps may differ in the
     last bits).  Returns both losses."""
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.train import train
-    small = dataclasses.replace(get_config(name), n_layers=2)
-    ckpt = os.path.join(SCRATCH, "ckpt", name)
+    small = dataclasses.replace(_train_config(name), n_layers=2)
+    ckpt = os.path.join(SCRATCH, "ckpt", name.replace(":", "-"))
     shutil.rmtree(ckpt, ignore_errors=True)
     kw = dict(n_steps=3, log_every=1, ckpt_dir=ckpt, ckpt_every=2,
               opts=_train_opts(seq), device="cuda")
@@ -2240,15 +2532,26 @@ def train_cli(steps: int = 2) -> dict:
                 wall_s=time.monotonic() - t0)
 
 
+# every training path
+TRAINED = tuple(TRAIN_PATHS) + tuple(BIG_TRAIN_PATHS)
+# the 2-layer full-width resumes: hymba-1.5b's, and the
+# single-card configurations' (musicgen-large on its frame embeddings,
+# yi-6b: 0.93 B parameters at 2 layers, a 9.3 GB checkpoint), (seq, batch)
+RESUMES = {"hymba-1.5b": (512, 2), "musicgen-large:audio": (256, 2),
+           "yi-6b": (256, 2)}
+
+
 def training_phase(card: str, step_times: dict) -> dict:
-    """Train every path, the 2-layer CPU checks and the resume; prints
+    """Train every path, the 2-layer CPU checks and the resumes; prints
     what it measured with the card's name and power limit, and for each
     path in ``SCOPED_PATHS`` one line of its train step by named scope:
-    device ms (``time_train``'s ``step_times``) and the share of PC
-    samples under the step's placeholder.  Returns {path: train_path's
-    result}."""
+    device ms (``time_train``'s ``step_times``) and, where the path is
+    profiled, the share of PC samples under the step's placeholder.
+    Returns {path: train_path's result}."""
     runs = {}
-    for name in TRAIN_PATHS:
+    for name in TRAINED:
+        if name in BIG_TRAIN_PATHS:
+            reckon_train(name)
         runs[name] = train_path(name)
         torch.cuda.empty_cache()
         shown = {k: v for k, v in runs[name].items() if k != "profiler"}
@@ -2259,10 +2562,11 @@ def training_phase(card: str, step_times: dict) -> dict:
               f"{json.dumps(step_times[name]['scope_ms'])} (busy "
               f"{step_times[name]['device_busy_ms']:.3f} ms a step under "
               f"torch.profiler); PC-sample shares under train_step "
-              f"{json.dumps(runs[name]['scope_samples'])}", flush=True)
-    for name, spec in TRAIN_PATHS.items():
-        if name == "hymba-1.5b":     # its 2-layer model runs the resume
+              f"{json.dumps(runs[name].get('scope_samples'))}", flush=True)
+    for name in TRAINED:
+        if name in ("hymba-1.5b",):     # its 2-layer model runs the resume
             continue
+        spec = _train_spec(name)
         for dtype, hold in spec.get("cpu_checks", ((None, True),)):
             cpu = check_train_against_cpu(name, 64, 0,
                                           spec.get("cpu_blocks"), dtype,
@@ -2273,10 +2577,121 @@ def training_phase(card: str, step_times: dict) -> dict:
     print(f"python -m repro_torch.launch.train (no arguments but --steps "
           f"2: xlstm-125m, 4 x 256, on the card): {json.dumps(cli)}",
           flush=True)
-    res = check_train_resume("hymba-1.5b", 512, 2)
-    print(f"hymba-1.5b: 2-layer full-width resume from an async checkpoint: "
-          f"bitwise equal loss {json.dumps(res)}", flush=True)
+    for name, (seq, batch) in RESUMES.items():
+        res = check_train_resume(name, seq, batch)
+        print(f"{name}: 2-layer full-width resume ({batch} x {seq}) from an "
+              f"async checkpoint: bitwise equal loss {json.dumps(res)}",
+              flush=True)
     return runs
+
+
+def big_training_timings(card: str) -> dict:
+    """The single-card training paths' train steps (``time_train``: host
+    wall, device busy, scopes, the step's peak memory against its
+    reckoning) with nothing else on the card, before any profiled serve
+    (their kernels are timed before, in ``main``'s kernel timings), each
+    after ``reckon_train``.  Prints each; returns {path: step times}."""
+    step_times = {}
+    for name in BIG_TRAIN_PATHS:
+        reckon_train(name)
+        step_times[name] = time_train(name)
+        print(f"{name} train step ({card}): "
+              f"{json.dumps(step_times[name])}", flush=True)
+    return step_times
+
+
+# the examples that port the JAX package's examples which drive JAX, run
+# on the card, each a process of its own, all at once
+EXAMPLES = ("torch_quickstart.py", "torch_serve_batch.py",
+            "torch_find_redundant_sync.py", "torch_blame_analysis.py",
+            "torch_counter_report.py", "torch_trace_timeline.py",
+            "torch_continuous_profiling.py", "torch_analyze_db.py")
+# the stalls ``torch_blame_analysis`` injects, as the JAX example does:
+# six 10 ms preprocessing regions and one 50 ms JIT stall, in the order
+# the blame ranks them; and how far past its length the JIT stall's blame
+# may run (sleep overshoot)
+BLAME_STALLS_MS = {"host_preprocessing": 60.0, "runtime_jit_compile": 50.0}
+BLAME_SLACK = 1.25
+
+
+def check_blame(text: str) -> list:
+    """``torch_blame_analysis``'s output must rank its stalls as the JAX
+    example's does (``BLAME_STALLS_MS``): ``host_preprocessing`` first,
+    ``runtime_jit_compile`` second, each blamed for at least its stalls'
+    length of idle time (less 1% for the printed rounding of its share),
+    the JIT stall for at most ``BLAME_SLACK`` times
+    its length (the preprocessing regions also hold the loop's host work
+    between their sleeps, so only their floor is held).  Returns [(context,
+    blamed ms)] in the example's order."""
+    idle_ms = float(re.search(r"all-streams-idle time: ([\d.]+) ms",
+                              text).group(1))
+    blame = [(name, float(pct) / 100 * idle_ms) for pct, name in re.findall(
+        r"^\s+([\d.]+)%\s+(\S+)", text.split("GPU Idleness Blame")[-1],
+        re.M)]
+    names = [name for name, _ in blame[:2]]
+    ms = dict(blame[:2])
+    jit = "runtime_jit_compile"
+    if names != list(BLAME_STALLS_MS) or any(
+            ms[k] < 0.99 * v for k, v in BLAME_STALLS_MS.items()) \
+            or ms[jit] > BLAME_SLACK * BLAME_STALLS_MS[jit]:
+        raise AssertionError(f"torch_blame_analysis: blamed ms {blame} of "
+                             f"{idle_ms} idle; stalls {BLAME_STALLS_MS}")
+    return blame
+
+
+def run_examples(timeout: float = 400.0) -> dict:
+    """Run every one of ``EXAMPLES`` with ``--device cuda`` (their
+    temporary files under ``build/chip_smoke/examples``), each must exit
+    0 and say it ran on cuda; then read what three of them found:
+    ``torch_find_redundant_sync`` a context with diff > 0,
+    ``torch_blame_analysis`` the JAX example's ranking of its stalls
+    (``check_blame``), ``torch_serve_batch`` PC samples in the
+    flash prefill kernel's calls under prefill and the decode kernel's
+    under decode.  Returns {example: wall seconds, the findings}."""
+    import ast
+    torch.cuda.empty_cache()     # the card's memory for their processes
+    tmp = os.path.join(SCRATCH, "examples")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), TMPDIR=tmp)
+    t0 = time.monotonic()
+    procs = {name: subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples", name), "--device",
+         "cuda"], cwd=tmp, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name in EXAMPLES}
+    outs, wall = {}, {}
+    try:
+        for name, proc in procs.items():
+            outs[name] = proc.communicate(
+                timeout=max(1.0, timeout - (time.monotonic() - t0)))
+            wall[name] = time.monotonic() - t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, proc in procs.items():
+        out, err = outs[name]
+        if proc.returncode or "device: cuda" not in out:
+            raise AssertionError(f"{name}: exit {proc.returncode}\n"
+                                 f"{out[-2000:]}\n{err[-2000:]}")
+    diffs = [int(d) for d in re.findall(
+        r"diff=\s*(\d+)", outs["torch_find_redundant_sync.py"][0])]
+    blame = check_blame(outs["torch_blame_analysis.py"][0])
+    calls = ast.literal_eval(re.search(
+        r"kernel calls with PC samples, by step: (.*)",
+        outs["torch_serve_batch.py"][0]).group(1))
+    found = dict(sync_diffs=diffs, blame_ms=blame, serve_calls=calls)
+    if not diffs or max(diffs) <= 0:
+        raise AssertionError(f"torch_find_redundant_sync: no context with "
+                             f"diff > 0: {diffs}")
+    if not any(c.startswith("flash_attention")
+               for c in calls.get("prefill", ())) or not any(
+            c.startswith("flash_decode") for c in calls.get("decode_step",
+                                                          ())):
+        raise AssertionError(f"torch_serve_batch: kernel calls with PC "
+                             f"samples {calls}")
+    return dict(wall_s=wall, found=found)
 
 
 def main() -> int:
@@ -2316,8 +2731,10 @@ def main() -> int:
     names = list(PATHS) + list(SERVING_PATHS)
     times = {name: time_path(name) for name in names}
     times.update(time_big_kernels())
+    print(f"flash_decode at G = 24 (no main path): "
+          f"{json.dumps(time_decode_past_a_tile())}", flush=True)
     train_times = {}
-    for name in TRAIN_PATHS:
+    for name in TRAINED:
         train_times[name] = time_train_kernels(name)
         for kname, (t, calls) in train_times[name].items():
             print(f"{name} train {kname}: device {json.dumps(t)}; "
@@ -2328,6 +2745,10 @@ def main() -> int:
     # 65.5 GB) and before any profiled serve
     big = {name: big_path(name, card) for name in BIG_PATHS}
     phase("single-card configurations")
+    # their training, alone on the card, before the four models below are
+    # allocated (yi-6b's reckoned peak is most of the card)
+    big_steps = big_training_timings(card)
+    phase("single-card train step timings")
     params = {name: init_params(name) for name in names}
     for name in names:
         breakdown_path(name, params[name])
@@ -2337,6 +2758,17 @@ def main() -> int:
         step_times[name] = time_train(name)
         print(f"{name} train step ({card}): "
               f"{json.dumps(step_times[name])}", flush=True)
+    step_times.update(big_steps)
+    donated = step_times[DONATION_TIMED]
+    print(f"{DONATION_TIMED} optimizer scope ({card}): functional "
+          f"{donated['scope_ms_functional']['optimizer']:.3f} ms, donated "
+          f"{donated['scope_ms']['optimizer']:.3f} ms a step", flush=True)
+    for name in TRAINED:
+        t = step_times[name]
+        print(f"train {name} peak memory ({card}): "
+              f"torch.cuda.max_memory_allocated over a step {t['peak_bytes']}"
+              f" bytes, reckoned {t['reckoned_peak_bytes']} (batch "
+              f"{t['batch']})", flush=True)
     phase("train step timings")
     runs = {name: serve_path(name, params.pop(name)) for name in PATHS}
     phase("profiled serves")
@@ -2349,6 +2781,9 @@ def main() -> int:
     phase("training")
     profiled_big_serve(card)
     phase("profiled single-card serve")
+    ex = run_examples()
+    print(f"examples on the card: {json.dumps(ex)}", flush=True)
+    phase("examples")
 
     kernels = []
     for path, run in runs.items():

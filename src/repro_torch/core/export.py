@@ -385,7 +385,10 @@ def module_from_graph(name: str, gm: torch.fx.GraphModule,
                 opcode, leaf = "get-tuple-element", "getitem"
             else:
                 leaf = _aten_name(target)
-                opcode = OPCODES.get(leaf)
+                # an in-place op (a donated update's ``mul_``) has the
+                # opcode of its out-of-place form
+                opcode = OPCODES.get(leaf) or (
+                    OPCODES.get(leaf[:-1]) if leaf.endswith("_") else None)
                 if opcode is None:
                     opcode, attrs = "copy", f'unmapped="{target}"'
                 if opcode == "dot":

@@ -31,14 +31,19 @@
 //     refill the ring as it drains), and computes on the first step while
 //     the rest land.  Nothing at or beyond `length` is read;
 //   - both products on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
-//     accumulate): A is the G <= 16 q rows of the kv head, zero-padded to
-//     the m16 tile (each thread holds rows g and g + 8 of its quad's
+//     accumulate): A is one m16 tile of the kv head's q rows, the last
+//     tile zero-padded (each thread holds rows g and g + 8 of its quad's
 //     fragments, and both are carried through the softmax and the
 //     merges); K fragments come from ldmatrix, V fragments from
 //     ldmatrix.trans, and P is re-packed from the S accumulators in
 //     registers, as in the prefill kernel's fragments.  The 4 warps merge
 //     their (m, l, acc) through shared memory, every thread taking a
-//     share.  G > 16 would need a second m16 tile of q rows.
+//     share;
+//   - any G.  The grid's y axis runs over (kv head, tile of 16 q rows):
+//     a kv head with G > 16 q heads takes ceil(G / 16) tiles, each its
+//     own cluster of splits reading the same keys.  At G <= 16 there is
+//     one tile and the kernel does what it did before tiles (the same
+//     splits, the same sums in the same order).
 
 #include <cooperative_groups.h>
 
@@ -51,7 +56,7 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxG = 16;  // q heads per kv head: one m16 tile of q rows
+constexpr int kMaxG = 16;  // q rows per tile: one m16 tile of q heads
 constexpr int kStep = 16;  // keys per MMA step
 constexpr int kMaxSplits = 8;  // the largest portable cluster
 
@@ -97,15 +102,21 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
   __shared__ float cAcc[kMaxG * D + kMaxSplits];
 
   cg::cluster_group cluster = cg::this_cluster();
-  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
   const int NS = gridDim.x;  // = the cluster's size
-  const int G = H / Hkv;
+  // this block's kv head and its tile of q rows: heads G0 .. G0 + G - 1
+  // of the kv head's H / Hkv
+  const int n_tiles = gridDim.y / Hkv;
+  const int hk = blockIdx.y / n_tiles;
+  const int G0 = (blockIdx.y % n_tiles) * kMaxG;
+  const int G = min(kMaxG, H / Hkv - G0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   cluster_arrive();  // matched by the wait before the first remote write
 
-  // Q: rows 0..G-1 of this kv head's q heads, rows G..15 zero
-  const __nv_bfloat16* qb = q + ((long)b * H + (long)hk * G) * D;
+  // Q: the tile's G q heads of this kv head in rows 0..G-1, rows G..15
+  // zero
+  const __nv_bfloat16* qb = q + ((long)b * H + (long)hk * (H / Hkv) + G0) * D;
   for (int i = tid; i < 16 * CH; i += kThreads) {
     const int r = i / CH, c = (i % CH) * 8;
     cp_async16(sQ + r * LD + c, r < G ? qb + r * D + c : qb, r < G);
@@ -287,7 +298,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
   cluster.sync();  // every partial has landed where it is merged
 
   // this block's chunk of the outputs: the splits merged in rank order
-  __nv_bfloat16* ob = out + ((long)b * H + (long)hk * G) * D;
+  __nv_bfloat16* ob = out + ((long)b * H + (long)hk * (H / Hkv) + G0) * D;
   for (int j = tid; j < chunk && split * chunk + j < G * D; j += kThreads) {
     const int i = split * chunk + j, gg = i / D;
     float m = kNegInf;
@@ -318,7 +329,7 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, void* out,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_splits, Hkv, B);
+  cfg.gridDim = dim3(n_splits, Hkv * ((H / Hkv + kMaxG - 1) / kMaxG), B);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -361,17 +372,19 @@ cudaError_t launch_d(const void* q, const void* kc, const void* vc, void* out,
 }  // namespace repro_torch
 
 // q (B,H,D), caches (B,Smax,Hkv,D), out (B,H,D): bf16, contiguous,
-// D = 64 or 128, H/Hkv <= 16.  Split s covers keys [s*keys_per_split,
-// (s+1)*keys_per_split) clipped to `length`; n_splits <= 8 is the
-// cluster size.  Returns the launch's cudaError_t (0 on success).
+// D = 64 or 128, any G = H/Hkv (ceil(G / 16) tiles of q rows a kv head).
+// Split s covers keys [s*keys_per_split, (s+1)*keys_per_split) clipped to
+// `length`; n_splits <= 8 is the cluster size.  Returns the launch's cudaError_t (0 on success).
 extern "C" int flash_decode_fwd_bf16(const void* q, const void* kc,
                                      const void* vc, void* out, int B, int H,
                                      int Hkv, int Smax, int D, int length,
                                      int n_splits, int keys_per_split,
                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H % Hkv != 0 || H / Hkv > repro_torch::kMaxG || n_splits < 1 ||
-      n_splits > repro_torch::kMaxSplits)
+  if (Hkv < 1 || H % Hkv != 0 || n_splits < 1 ||
+      n_splits > repro_torch::kMaxSplits ||
+      (long)Hkv * ((H / Hkv + repro_torch::kMaxG - 1) / repro_torch::kMaxG) >
+          65535)
     return (int)cudaErrorInvalidValue;
   if (D == 64)
     return repro_torch::launch_d<64>(q, kc, vc, out, B, H, Hkv, Smax, length,

@@ -4,7 +4,9 @@ Replaces the TPU kernel ``repro/kernels/decode_attention.py::
 _decode_kernel`` (wrapper ``flash_decode_fwd``): one query token per
 sequence against a (B, Smax, Hkv, D) cache, all G q heads of one kv head
 in one cell, positions >= ``length`` masked and whole blocks beyond it
-skipped, (m, l, acc) carried over a sequential grid axis.
+skipped, (m, l, acc) carried over a sequential grid axis.  It takes any
+G; so does the kernel here, in tiles of ``Q_TILE`` q heads: a kv head of
+G q heads is ceil(G / 16) cells, each reading the kv head's keys.
 
 On the H100 there is no sequential grid to carry the state, and B*Hkv
 blocks would leave most of the 132 SMs idle at serving batch sizes.  The
@@ -38,8 +40,8 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)  # the head dims the kernel is built for
                        # (launch<64> and launch<128>)
-MAX_GROUP = 16         # q heads per kv head the kernel holds (kMaxG):
-                       # one m16 tile of q rows
+Q_TILE = 16            # q heads per cell (kMaxG): one m16 tile of q
+                       # rows; a kv head of G q heads is ceil(G / 16) cells
 MAX_SPLITS = 8         # splits per (batch, kv head): one portable cluster
 MIN_KEYS = 64          # keys per split at least: one 16-key step a warp
 
@@ -62,28 +64,37 @@ def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, H, D).to(q.dtype)
 
 
+def q_tiles(H: int, Hkv: int) -> int:
+    """Cells of one kv head: tiles of ``Q_TILE`` of its H / Hkv q
+    heads."""
+    return -(-(H // Hkv) // Q_TILE)
+
+
 def work(B: int, H: int, Hkv: int, D: int, length: int) -> tuple:
-    """(FLOPs, bytes) of one call: QK^T and PV over ``length`` keys; q
-    read and the output written once, the first ``length`` rows of each
-    cache read once, bf16."""
+    """(FLOPs, bytes) the function needs: QK^T and PV over ``length``
+    keys; q read and the output written once, the first ``length`` rows
+    of each cache read once, bf16.  The kernel reads each kv head's keys
+    once a tile of q heads (``q_tiles``), so past G = 16 it moves more
+    bytes than this."""
     return (4.0 * B * H * length * D,
             2.0 * (2 * B * H * D + 2 * B * length * Hkv * D))
 
 
-def plan_splits(batch: int, n_kv_heads: int, length: int, n_sms: int
-                ) -> tuple:
+def plan_splits(batch: int, n_kv_heads: int, length: int, n_sms: int,
+                n_q_tiles: int = 1) -> tuple:
     """(n_splits, keys_per_split): split [0, length) into ranges of any
     number of keys, none empty.  The split count is the largest power of
     two up to ``MAX_SPLITS`` (one portable cluster) that keeps the grid,
-    batch * n_kv_heads * splits blocks, within one block per SM of the
-    ``n_sms`` and each split at about ``MIN_KEYS`` keys or more.  At the
-    serving shapes that is 8 splits for qwen2 (64 blocks) and 4 for hymba
-    (80 blocks; 8 would be 160), the fastest of 1-8 in ``chip_smoke``'s
-    split sweep on an H100 (``PERF.md``)."""
+    batch * n_kv_heads * n_q_tiles * splits blocks, within one block per
+    SM of the ``n_sms`` and each split at about ``MIN_KEYS`` keys or
+    more.  At the serving shapes that is 8 splits for qwen2 (64 blocks)
+    and 4 for hymba (80 blocks; 8 would be 160), the fastest of 1-8 in
+    ``chip_smoke``'s split sweep on an H100 (``PERF.md``)."""
     n_keys = -(-length // MIN_KEYS)
+    cells = batch * n_kv_heads * n_q_tiles
     want = 1
     while (2 * want <= min(MAX_SPLITS, n_keys)
-           and 2 * want * batch * n_kv_heads <= n_sms):
+           and 2 * want * cells <= n_sms):
         want *= 2
     per = -(-length // want)
     return -(-length // per), per
@@ -108,8 +119,8 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, length: int) -> torch.Tensor:
     """Launch the kernel (one launch) on the current stream.  Takes a
     bf16 CUDA q (B,H,D) and contiguous bf16 CUDA caches (B,Smax,Hkv,D),
-    D in ``HEAD_DIMS``, H/Hkv <= ``MAX_GROUP`` and 1 <= length <= Smax;
-    raises on anything else."""
+    D in ``HEAD_DIMS``, any H/Hkv and 1 <= length <= Smax; raises on
+    anything else."""
     B, H, D = q.shape
     Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
@@ -118,7 +129,7 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                              f"CUDA tensor, got {t.dtype} on {t.device}")
     if k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
             or k_cache.shape[0] != B or k_cache.shape[3] != D \
-            or H % Hkv or H // Hkv > MAX_GROUP or D not in HEAD_DIMS:
+            or H % Hkv or D not in HEAD_DIMS:
         raise ValueError(f"flash_decode kernel: bad shapes q {tuple(q.shape)}"
                          f" cache {tuple(k_cache.shape)}")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
@@ -129,7 +140,8 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                          f"[1, {Smax}]")
     q = q.contiguous()
     n_splits, keys_per_split = plan_splits(B, Hkv, length,
-                                           _sm_count(q.device))
+                                           _sm_count(q.device),
+                                           q_tiles(H, Hkv))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):

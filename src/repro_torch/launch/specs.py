@@ -18,10 +18,10 @@ from typing import Dict
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.configs.base import ATTN, ModelConfig, ShapeConfig
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, leaves_with_paths
 
 META = torch.device("meta")
 # init_params reads only ``gen.device``; on the meta device dense_init
@@ -99,3 +99,75 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, plan=None,
     else:
         out.update(decode_struct(cfg, shape))
     return out
+
+
+def train_memory(cfg: ModelConfig, batch: int, seq: int,
+                 opts: T.ModelOptions = T.ModelOptions()) -> Dict:
+    """The bytes a donated train step (``launch.train.train``) holds on
+    one device, part by part, and the peak they reckon: the largest of
+    three phases of the step.
+
+    - ``weights``, ``grads`` (each leaf's dtype), ``moments`` (two fp32
+      copies): ``params_struct``'s leaves;
+    - ``activations``: what the remat policy ``dots_no_batch`` saves for
+      the backward, bf16: each period's input and the outputs of its
+      matmuls (q, k, v, the output projection, w1, w3, w2: per token 3d +
+      H·D + 2·Hkv·D + 2·ff), and the final norm's saved values (its fp32
+      input, its output and the loss's input: 8 bytes a model value);
+    - ``loss_chunk``: one chunk's backward, 18 bytes a logit of
+      ``loss_chunk`` positions: the recomputed fp32 logits, the fp32
+      exponentials of the log-sum-exp, the fp32 scatter of the label
+      gradient, the fp32 gradient of the logits and its bf16 cast (on an
+      H100, qwen2-1.5b's 4 x 512 step peaked in this phase at 26.90 GB,
+      where 10 bytes a logit reckoned 24.19);
+    - ``select_transient``: the largest stacked leaf's full-size gradient
+      that one layer's ``tree[i]`` (SelectBackward) makes before it is
+      added to the leaf's gradient;
+    - ``recompute``: one period's backward: the flash kernel's plain
+      recompute backward (four fp32 (B, H, S, S) score-sized tensors) and
+      the period's recomputed fp32 norms and FFN values;
+    - ``update``: three fp32 copies of the largest piece the update takes
+      at a time (``adamw.slices``: a period's slice of a stacked leaf, or
+      the embed or unembed whole).
+
+    The phases: the loss's backward (weights, moments, the unembed's
+    gradient, activations, the loss chunk); the layers' backward
+    (weights, moments, every gradient but the embed's, activations, one
+    SelectBackward transient, one period's recompute); the update
+    (weights, gradients, moments, the update's temporaries).  Modelled
+    for stacks of attention layers with a dense FFN (the configurations
+    that train on one card); raises on others."""
+    if any(k != ATTN for k in cfg.blocks) or cfg.moe is not None:
+        raise NotImplementedError(f"train_memory: {cfg.name}'s blocks "
+                                  f"{sorted(set(cfg.blocks))} are not "
+                                  f"modelled")
+    params = params_struct(cfg)
+    weights = nbytes(params)
+    n = sum(t.numel() for t in leaves(params))
+    d, ff = cfg.d_model, cfg.d_ff
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    tokens = batch * seq
+    per_token = 3 * d + H * D + 2 * Hkv * D + 2 * ff
+    parts = dict(
+        weights=weights, grads=weights, moments=8 * n,
+        activations=2 * tokens * per_token * cfg.n_layers + 8 * tokens * d,
+        loss_chunk=18 * batch * min(seq, opts.loss_chunk) * cfg.vocab,
+        select_transient=max(t.numel() * t.element_size()
+                             for path, t in leaves_with_paths(params)
+                             if path[0] == "layers"),
+        recompute=16 * batch * H * seq * seq + 4 * tokens * (2 * d + ff),
+        update=12 * max(x.numel() for path, t in leaves_with_paths(params)
+                        for x in adamw.slices(path, t)))
+    embed = params["embed"]
+    phases = dict(
+        loss_backward=parts["weights"] + parts["moments"]
+        + nbytes(params["unembed"]) + parts["activations"]
+        + parts["loss_chunk"],
+        layers_backward=parts["weights"] + parts["moments"]
+        + parts["grads"] - embed.numel() * embed.element_size()
+        + parts["activations"] + parts["select_transient"]
+        + parts["recompute"],
+        update=parts["weights"] + parts["grads"] + parts["moments"]
+        + parts["update"])
+    return dict(parts=parts, phases=phases, peak=max(phases.values()),
+                batch=batch, seq=seq)

@@ -17,12 +17,15 @@ def _value_and_grad(cfg: ModelConfig, opts: T.ModelOptions, params, batch):
     same storage) and ``torch.autograd.grad`` gives the gradients.  This
     is plain autograd, not ``torch.func.grad_and_value``: the func
     transforms do not take the saved-tensor hooks of the remat
-    checkpoints."""
+    checkpoints.  A parameter the loss does not read (the token embedding
+    of a model fed frame embeddings) gets a zero gradient, as
+    ``jax.grad`` gives it."""
     with torch.enable_grad():
         p = tree_map(lambda t: t.detach().requires_grad_(True), params)
         loss, metrics = T.loss_fn(p, cfg, batch, opts=opts)
         flat = leaves(p)
-        grads = dict(zip(map(id, flat), torch.autograd.grad(loss, flat)))
+        grads = dict(zip(map(id, flat), torch.autograd.grad(
+            loss, flat, allow_unused=True, materialize_grads=True)))
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_map(lambda t: grads[id(t)], p))
 
@@ -30,10 +33,17 @@ def _value_and_grad(cfg: ModelConfig, opts: T.ModelOptions, params, batch):
 def make_train_step(cfg: ModelConfig, opts: T.ModelOptions,
                     opt_cfg: adamw.OptConfig, *,
                     grad_compression: bool = False,
-                    n_microbatches: int = 1):
+                    n_microbatches: int = 1, donate: bool = False):
     """``train_step(params, opt_state, batch) -> (new params, new opt
     state, metrics)``: loss and gradients, optionally the int8 wire model
-    of the gradients (``grad_compression``), then the AdamW update.  With
+    of the gradients (``grad_compression``), then the AdamW update.  The
+    step is functional, as the reference's: it changes nothing it is
+    given.  With ``donate`` it takes ``params`` and ``opt_state`` over,
+    as ``jax.jit(step, donate_argnums=(0, 1))`` does at the reference's
+    call site: the update writes them in place (``adamw.update_``) and
+    the step returns the same trees, so a step holds one copy of the
+    parameters and the moments, not two; the values are the functional
+    step's, bitwise.  With
     ``n_microbatches`` > 1 the batch is split along its first axis and the
     gradients are accumulated in fp32 over the microbatches (activations
     scale with B / n_microbatches); loss and metrics are their means,
@@ -52,8 +62,12 @@ def make_train_step(cfg: ModelConfig, opts: T.ModelOptions,
             with named_scope("grad_compression"):
                 grads = comp_mod.ef_compress_tree(grads)
         with named_scope("optimizer"), torch.no_grad():
-            new_p, new_o, om = adamw.update(opt_cfg, grads, opt_state,
-                                            params)
+            if donate:
+                om = adamw.update_(opt_cfg, grads, opt_state, params)
+                new_p, new_o = params, opt_state
+            else:
+                new_p, new_o, om = adamw.update(opt_cfg, grads, opt_state,
+                                                params)
         return new_p, new_o, {"loss": loss, **metrics, **om}
 
     def train_step(params, opt_state, batch):

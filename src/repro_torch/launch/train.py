@@ -5,7 +5,17 @@ Wires the substrates together: config -> seeded parameters and AdamW
 state (or a resumed checkpoint) -> the synthetic token pipeline with its
 prefetch thread -> the train step (``steps.make_train_step``: loss,
 backward, optional int8 gradient wire model, AdamW) -> the checkpoint
-manager (atomic, async) -> the straggler watchdog.  On the card the
+manager (atomic, async) -> the straggler watchdog.  Each step is
+donated its parameters and AdamW state, as the reference jits its step
+with ``donate_argnums=(0, 1)``: the update writes them in place, so a
+step holds one copy of the weights and moments (about 14 bytes a
+parameter beside the activations, where two copies were 22; what lets
+musicgen-large and yi-6b train on one 80 GB card).  A caller's
+``params`` and ``opt_state`` are therefore updated in place: after
+``train`` they hold the last step's values, and the returned parameters
+are the same tensors.  The checkpoint manager copies every leaf to the
+host before ``save`` returns, so its background write never sees a later
+step's values.  On the card the
 attention and the mamba mixer run the hand-written Hopper kernels
 (``ModelOptions.use_flash_kernel``, on by default), their recompute under
 remat included; their backward is plain torch, as the reference's.
@@ -71,7 +81,8 @@ def train(cfg: ModelConfig, shape: ShapeConfig, *, n_steps: int = 20,
 
     ``params`` / ``opt_state`` take a parameter tree and an AdamW state
     (e.g. from ``convert.params_from_jax`` / ``opt_state_from_jax``)
-    instead of the seeded initialisation and zero moments.  The history
+    instead of the seeded initialisation and zero moments; every step
+    updates them in place (donated).  The history
     holds ``{"step", "loss", "gnorm"}`` every ``log_every`` steps and at
     the last.  With a profile directory, ``paths["measurement"]`` is a
     JSON file of the registered train step's op count, custom-calls bound,
@@ -99,7 +110,8 @@ def train(cfg: ModelConfig, shape: ShapeConfig, *, n_steps: int = 20,
     ds = SyntheticLM(cfg, shape, seed=seed, host_id=host_id)
     step_fn = steps_mod.make_train_step(cfg, opts, opt_cfg,
                                         grad_compression=grad_compression,
-                                        n_microbatches=n_microbatches)
+                                        n_microbatches=n_microbatches,
+                                        donate=True)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     # ---- optional measurement (the paper's tool) ---------------------------
@@ -157,11 +169,12 @@ def train(cfg: ModelConfig, shape: ShapeConfig, *, n_steps: int = 20,
 
 def register_train_step(prof, cfg: ModelConfig, opts: T.ModelOptions,
                         step_fn, params, opt_state, batch) -> tuple:
-    """Trace the whole train step at these inputs, bind the kernels'
-    interiors at the step's shapes to its ``custom-call`` ops and register
-    the module with ``prof`` (with its cost).  Returns (module id,
-    {op count, custom-calls bound, trace and registration seconds,
-    cost})."""
+    """Trace the whole train step at these inputs (on fake tensors: a
+    donated step's in-place update is traced as in-place ops and leaves
+    the inputs as they are), bind the kernels' interiors at the step's
+    shapes to its ``custom-call`` ops and register the module with
+    ``prof`` (with its cost).  Returns (module id, {op count, custom-calls
+    bound, trace and registration seconds, cost})."""
     from repro_torch.core import export
     from repro_torch.kernels import kernel_structures
     t0 = time.perf_counter()
@@ -182,10 +195,11 @@ def main(argv=None):
                     help="model config (default xlstm-125m, as in the JAX "
                          "package; it runs none of the port's kernels: "
                          "the reference has none for the mLSTM and "
-                         "sLSTM. qwen2-1.5b, hymba-1.5b and "
-                         "granite-moe-1b-a400m train through the flash "
-                         "prefill kernel, hymba also through the SSD "
-                         "scan)")
+                         "sLSTM. qwen2-1.5b, hymba-1.5b, "
+                         "granite-moe-1b-a400m, musicgen-large (on audio "
+                         "frame embeddings) and yi-6b train through the "
+                         "flash prefill kernel, hymba also through the "
+                         "SSD scan)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--batch", type=int, default=4)

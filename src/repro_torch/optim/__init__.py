@@ -1,2 +1,2 @@
 from repro_torch.optim.adamw import (  # noqa: F401
-    OptConfig, AdamState, init, update, schedule, global_norm)
+    OptConfig, AdamState, init, update, update_, schedule, global_norm)

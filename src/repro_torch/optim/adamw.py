@@ -4,10 +4,20 @@ no optimizer library).
 
 A tree is a nested dict of tensors (the model's parameter tree).
 ``update`` is functional, as the reference's: it returns new parameters
-and a new state and changes nothing it is given, so a train step can be
-traced whole (``core.export.trace_train_step``).  The moments are fp32
-whatever the parameter's dtype; a parameter is updated in fp32 and cast
-back to its own dtype.
+and a new state and changes nothing it is given.  ``update_`` is the
+same update with the parameters and the state donated, the counterpart
+of ``jax.jit(..., donate_argnums=(0, 1))`` around the reference's step
+(``repro/launch/train.py``): it writes the new values into the tensors
+it is given.  ``update`` is ``update_`` on copies, so the two agree
+bitwise.  The moments are fp32 whatever the parameter's dtype; a
+parameter is updated in fp32 and cast back to its own dtype.
+
+The update and the gradient norm walk a leaf one slice at a time: a
+leaf under ``"layers"`` (stacked over the periods of the model) by its
+leading axis, any other leaf whole.  So no fp32 temporary exceeds one
+period's slice of a stacked leaf or one unstacked leaf (the embed, the
+unembed): yi-6b's stacked ``w1`` is 2.9 GB in bf16, and whole-leaf fp32
+temporaries of it would not fit beside its moments on one 80 GB card.
 """
 from __future__ import annotations
 
@@ -17,7 +27,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves, leaves_with_paths, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,31 +72,60 @@ def init(params) -> AdamState:
                      mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
+def slices(path: tuple, x: torch.Tensor) -> list:
+    """The pieces the update and the norm take one at a time: a
+    period-stacked leaf (under ``"layers"``) by its leading axis, any
+    other leaf whole.  Views, no copies."""
+    return list(x.unbind(0)) if path[:1] == ("layers",) and x.dim() \
+        else [x]
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(x.float().square().sum()
-                          for x in leaves(tree)))
+    """sqrt of the sum of squares of every element, in fp32, summed one
+    slice (``slices``) at a time in leaf order."""
+    total = torch.zeros((), dtype=torch.float32,
+                        device=leaves_with_paths(tree)[0][1].device)
+    for path, x in leaves_with_paths(tree):
+        for s in slices(path, x):
+            total = total + s.float().square().sum()
+    return torch.sqrt(total)
 
 
-def update(cfg: OptConfig, grads, state: AdamState, params):
-    """Returns (new_params, new_state, metrics {"grad_norm", "lr"})."""
+def update_(cfg: OptConfig, grads, state: AdamState, params) -> dict:
+    """The AdamW step with ``params`` and ``state`` donated: the new
+    parameters, moments and step are written into the tensors given, one
+    slice at a time, and ``grads`` is left as it is.  Returns the metrics
+    {"grad_norm", "lr"}.  Callers run it under ``torch.no_grad()``."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
-    step = state.step + 1
-    lr = schedule(cfg, step)
-    b1c = 1 - cfg.b1 ** step.float()
-    b2c = 1 - cfg.b2 ** step.float()
+    state.step.add_(1)
+    lr = schedule(cfg, state.step)
+    b1c = 1 - cfg.b1 ** state.step.float()
+    b2c = 1 - cfg.b2 ** state.step.float()
+    flat = zip(leaves_with_paths(grads), leaves_with_paths(state.mu),
+               leaves_with_paths(state.nu), leaves_with_paths(params))
+    for (path, g), (_, m), (_, v), (_, p) in flat:
+        decay = p.dim() >= 2  # decoupled weight decay on matrices only
+        for gs, ms, vs, ps in zip(*(slices(path, x) for x in (g, m, v, p))):
+            # the functional form's expressions, in place: m = b1 m + (1 -
+            # b1) g; v = b2 v + (1 - b2) g^2; delta = (m / b1c) / (sqrt(v /
+            # b2c) + eps) (+ wd p); p = p - lr delta
+            t = gs.float() * scale
+            ms.mul_(cfg.b1).add_((1 - cfg.b1) * t)
+            vs.mul_(cfg.b2).add_(t.square_().mul_(1 - cfg.b2))
+            torch.div(vs, b2c, out=t).sqrt_().add_(cfg.eps)
+            delta = torch.div(ms, b1c).div_(t)
+            if decay:
+                delta.add_(t.copy_(ps).mul_(cfg.weight_decay))
+            ps.copy_(t.copy_(ps).sub_(delta.mul_(lr)))
+    return {"grad_norm": gnorm, "lr": lr}
 
-    def upd(g, m, v, p):
-        g = g.float() * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g.square()
-        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        if p.dim() >= 2:  # decoupled weight decay on matrices only
-            delta = delta + cfg.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), m, v
 
-    out = tree_map(upd, grads, state.mu, state.nu, params)
-    new_p, new_m, new_v = (tree_map(lambda o: o[i], out) for i in range(3))
-    return new_p, AdamState(step, new_m, new_v), {"grad_norm": gnorm,
-                                                  "lr": lr}
+def update(cfg: OptConfig, grads, state: AdamState, params):
+    """Returns (new_params, new_state, metrics {"grad_norm", "lr"}):
+    ``update_`` on copies of ``params`` and ``state``, which it leaves as
+    they are."""
+    new_p = tree_map(torch.clone, params)
+    new_s = tree_map(torch.clone, state)
+    return new_p, new_s, update_(cfg, grads, new_s, new_p)

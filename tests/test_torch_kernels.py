@@ -134,7 +134,10 @@ DECODE_SWEEP = [                     # tests/test_decode_kernel.py:14-18
     (2, 8, 2, 64, 1024),             # GQA 4:1
     (1, 8, 1, 32, 512),              # MQA
     (2, 48, 4, 128, 544),            # G = 12 (starcoder2-15b's heads)
-    (1, 32, 2, 64, 300),             # G = 16, the decode kernel's limit
+    (1, 32, 2, 64, 300),             # G = 16, one tile of q rows
+    (1, 40, 2, 64, 300),             # G = 20: a second, partial tile
+    (2, 48, 2, 128, 544),            # G = 24
+    (1, 64, 2, 64, 512),             # G = 32: two whole tiles
 ]
 
 
@@ -174,6 +177,37 @@ def test_decode_wrapper_vs_pallas_interpret():
     assert ops.flash_decode.launches == before == 0
 
 
+@pytest.mark.parametrize("H,Hkv,D", [(20, 1, 64), (48, 2, 128),
+                                     (64, 2, 64)])
+def test_decode_plain_past_one_tile_vs_pallas_interpret(H, Hkv, D):
+    """G = 20, 24 and 32, past the kernel's 16 q rows a tile: the plain
+    version (the wrapper on the CPU) against the Pallas decode kernel in
+    interpret mode, which takes any G in one (1, 1, G, D) block; f32 at
+    the JAX tests' tolerance, no launch."""
+    (jq, jk, jv), (tq, tk, tv) = make(
+        11, [(2, H, D), (2, 320, Hkv, D), (2, 320, Hkv, D)], scale=0.5)
+    for length in (1, 107, 320):
+        want = jops.flash_decode(jq, jk, jv, jnp.int32(length), block_kv=64)
+        close(fd.flash_decode_plain(tq, tk, tv, length), want,
+              err_msg=f"len={length}", **tol("float32"))
+        close(ops.flash_decode(tq, tk, tv, length), want,
+              err_msg=f"len={length}", **tol("float32"))
+    assert ops.flash_decode.launches == 0
+
+
+@pytest.mark.parametrize("H,Hkv,tiles", [(12, 2, 1), (32, 2, 1),
+                                         (40, 2, 2), (64, 2, 2),
+                                         (68, 2, 3), (8, 8, 1)])
+def test_q_tiles_and_the_bound_read_kv_once(H, Hkv, tiles):
+    """A kv head of G q heads is ceil(G / 16) cells; the byte bound
+    reads the caches once whatever the tiles (a tile's re-read is the
+    kernel's cost, not the function's)."""
+    assert fd.q_tiles(H, Hkv) == tiles
+    flops, nbytes = fd.work(4, H, Hkv, 64, 500)
+    assert flops == 4.0 * 4 * H * 500 * 64
+    assert nbytes == 2.0 * (2 * 4 * H * 64 + 2 * 4 * 500 * Hkv * 64)
+
+
 def test_decode_attention_is_the_plain_version():
     assert tattn.decode_attention is fd.flash_decode_plain
 
@@ -193,6 +227,22 @@ def test_plan_splits_cover_length(B, Hkv, length):
     assert n == 1 or B * Hkv * n <= 132
     assert (2 * n > min(fd.MAX_SPLITS, -(-length // fd.MIN_KEYS))
             or 2 * B * Hkv * n > 132)
+
+
+@pytest.mark.parametrize("B,Hkv,tiles,length", [
+    (4, 2, 1, 528), (4, 2, 2, 528), (4, 1, 2, 1000), (1, 2, 4, 5000),
+    (4, 8, 2, 64)])
+def test_plan_splits_count_every_tile(B, Hkv, tiles, length):
+    """With q tiles the grid is B * Hkv * tiles cells of splits: within
+    one block an SM as far as the keys allow, and one tile plans as
+    before tiles."""
+    n, per = fd.plan_splits(B, Hkv, length, 132, tiles)
+    assert (n - 1) * per < length <= n * per
+    assert n == 1 or B * Hkv * tiles * n <= 132
+    assert (2 * n > min(fd.MAX_SPLITS, -(-length // fd.MIN_KEYS))
+            or 2 * B * Hkv * tiles * n > 132)
+    if tiles == 1:
+        assert (n, per) == fd.plan_splits(B, Hkv, length, 132)
 
 
 @pytest.mark.parametrize("B,Hkv,length,want", [
