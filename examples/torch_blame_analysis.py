@@ -12,10 +12,12 @@ blame analysis partitions all-streams-idle time across active CPU contexts
 and ranks them — the paper used exactly this view to find and remove both
 stalls (10.6s -> 9.8s, 1.08x on 640 streams).  The stalls are the JAX
 example's: one 50 ms JIT stall, which ranks second to the six 10 ms
-preprocessing regions.  Runs on CUDA where there is a card, else on the
-CPU.
+preprocessing regions.  It also prints how long each stall really lasted
+(a sleep can run past its length on a busy host), which is what the blame
+should find.  Runs on CUDA where there is a card, else on the CPU.
 """
 import argparse
+import json
 import os
 import tempfile
 import time
@@ -49,6 +51,14 @@ def main(argv=None):
 
     prof = Profiler(os.path.join(out, "prof"), tracing=True, rng_seed=0)
     mid = prof.register_structure("kernel_f", module, export.cost(module))
+    stalled = {"host_preprocessing": 0.0, "runtime_jit_compile": 0.0}
+
+    def stall(name, seconds):
+        with prof.cpu_region(name):
+            t0 = time.perf_counter()
+            time.sleep(seconds)
+            stalled[name] += (time.perf_counter() - t0) * 1e3
+
     with prof:
         for i in range(6):
             with prof.dispatch("kernel", "kernel_f", stream=i % 2,
@@ -56,10 +66,8 @@ def main(argv=None):
                 kernel_f(x)
                 sync()
             if i == 2:
-                with prof.cpu_region("runtime_jit_compile"):
-                    time.sleep(0.05)      # the paper's JIT-at-runtime stall
-            with prof.cpu_region("host_preprocessing"):
-                time.sleep(0.01)
+                stall("runtime_jit_compile", 0.05)  # the paper's JIT stall
+            stall("host_preprocessing", 0.01)
     paths = prof.write()
 
     profiles = [v for k, v in paths.items() if "trace" not in k
@@ -74,6 +82,7 @@ def main(argv=None):
     gpu_traces = [read_trace(v) for k, v in paths.items()
                   if k.startswith("gpu_trace")]
     blame, idle = blame_gpu_idleness(cpu_traces, gpu_traces)
+    print(f"stalls measured (ms): {json.dumps(stalled)}")
     print(f"total all-streams-idle time: {idle / 1e6:.1f} ms\n")
     print("GPU Idleness Blame (paper §7.2 tab), descending:")
     for name, frac in blame_report(blame, idle, db, top=8):

@@ -8,15 +8,16 @@ optimizer sees exactly the values the wire would deliver;
 ``ef_compress`` also returns the quantization residual, for error
 feedback carried into the next step's gradient.
 
-``compressed_psum`` reduces in the compressed domain over a mesh axis; it
-needs the multi-device slice of the port (``ROADMAP.md``, queue 1) and
-raises until then.
+``compressed_psum`` reduces in the compressed domain over a mesh axis,
+inside a ``shard_map`` region (``shardmap_compat``).
 """
 from __future__ import annotations
 
 from typing import Any, Optional, Tuple
 
 import torch
+
+from repro_torch.distributed import shardmap_compat as smc
 
 BLOCK = 256
 
@@ -71,11 +72,18 @@ def ef_compress_tree(grads: Any) -> Any:
 
 
 def compressed_psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
-    """A psum in the compressed domain over a mesh axis: needs the port's
-    multi-device slice (torch.distributed over a device mesh)."""
-    raise NotImplementedError(
-        "compressed_psum needs a collective over a mesh axis; it comes with "
-        "the multi-device slice of the port (ROADMAP.md, queue 1)")
+    """psum in the compressed domain: quantize locally, sum the ranks'
+    blocks over the axis, dequantize, inside a ``shard_map`` region.  The
+    reference's arithmetic exactly: each rank's int8 blocks times its
+    scales (an fp32 payload, whatever the reference's comment says of
+    narrow payloads) are psum'd, and the sum cut to x's size and cast to
+    its dtype."""
+    q, s = quantize(x)
+    qs = smc.psum(q.to(torch.int32) * s[:, None], axis_name)
+    n = 1
+    for d in x.shape:
+        n *= d
+    return qs.reshape(-1)[:n].reshape(x.shape).to(x.dtype)
 
 
 def wire_bytes(x: torch.Tensor) -> int:

@@ -8,8 +8,9 @@ as the reference reckons them with ``jax.eval_shape`` and
 ``ShapeDtypeStruct``.  The frontends' batch layout lives here
 (``batch_struct``): an audio model takes frame embeddings in place of
 tokens, a vlm model a prefix of patch embeddings before its text.
-Sharding plans are the multi-device slice: ``input_specs`` raises on
-one.
+With a sharding plan ``input_specs`` gives each input's sharding beside
+it (``distributed.sharding``): the stand-ins stay global, as a
+``ShapeDtypeStruct`` with a sharding is.
 """
 from __future__ import annotations
 
@@ -86,11 +87,12 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, plan=None,
     prefill-> {params, batch}
     decode -> {params, cache, token/embed, pos}
 
-    ``plan`` and ``kv_seq_axis`` (the reference's sharding) raise:
-    sharding waits for the multi-device slice."""
-    if plan is not None or kv_seq_axis is not None:
-        raise NotImplementedError("input_specs: sharding plans are not "
-                                  "ported (multi-device)")
+    With a ``plan`` on a mesh (a real or an abstract one,
+    ``launch.mesh.abstract_mesh``) the result also holds ``shardings``:
+    the same keys, each a tree of ``sharding.Sharding`` (spec and DTensor
+    placements) beside its stand-ins, as the reference's structs carry
+    theirs; ``kv_seq_axis`` as ``sharding.cache_shardings``."""
+    from repro_torch.distributed import sharding as shard_mod
     out: Dict = {"params": params_struct(cfg)}
     if shape.kind in ("train", "prefill"):
         out["batch"] = batch_struct(cfg, shape)
@@ -98,6 +100,18 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, plan=None,
             out["opt_state"] = opt_struct(out["params"])
     else:
         out.update(decode_struct(cfg, shape))
+    if plan is None or plan.mesh is None:
+        return out
+    p_sh = shard_mod.param_shardings(out["params"], cfg, plan)
+    sh: Dict = {"params": p_sh}
+    if "batch" in out:
+        sh["batch"] = shard_mod.batch_shardings(out["batch"], plan)
+    if "opt_state" in out:
+        sh["opt_state"] = shard_mod.opt_shardings(out["opt_state"], p_sh)
+    if "cache" in out:
+        sh["cache"] = shard_mod.cache_shardings(out["cache"], cfg, plan,
+                                                kv_seq_axis=kv_seq_axis)
+    out["shardings"] = sh
     return out
 
 

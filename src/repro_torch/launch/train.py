@@ -34,8 +34,18 @@ top-down view under the ``train_step`` placeholder splits into
 ``optimizer``; torch.profiler sees the same names as ranges.
 
 Runs on the card unless the caller asks for the CPU (``device="cpu"``,
-as the tests do); there is no CPU fallback.  Meshes, sharding and elastic
-restore come with the port's multi-device slice.
+as the tests do); there is no CPU fallback.
+
+On a device mesh (``mesh=``, a ``launch.mesh.Mesh`` over the world's
+ranks, every rank calling ``train``) the reference's sharding plan
+(``strategy``: ``tp``, ``fsdp`` or ``dp_only``; the MoE weight mode
+too) lays the parameters and AdamW state out as DTensors: each rank
+builds the seeded parameters whole and keeps its blocks, or takes a
+sharded tree (``convert.params_from_jax(..., plan=)``), and the step is
+``steps.make_train_step(..., plan=)``.  Every rank draws the same global
+batches; the step keeps its rows.  Checkpoints are written by block and
+restored onto the mesh's layout.  The profiler's traced step is not
+taken on a mesh (``profile_dir`` raises there).
 """
 from __future__ import annotations
 
@@ -51,11 +61,14 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
+from repro_torch.distributed import sharding as shard_mod
+from repro_torch.distributed import shardmap_compat as smc
 from repro_torch.ft import StragglerWatchdog
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.serve import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
+from repro_torch.tree import leaves
 
 
 def to_device(batch: dict, device) -> dict:
@@ -69,6 +82,7 @@ def to_device(batch: dict, device) -> dict:
 
 
 def train(cfg: ModelConfig, shape: ShapeConfig, *, n_steps: int = 20,
+          mesh=None, strategy: str = "tp",
           ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
           profile_dir: Optional[str] = None,
           opts: Optional[T.ModelOptions] = None,
@@ -92,12 +106,23 @@ def train(cfg: ModelConfig, shape: ShapeConfig, *, n_steps: int = 20,
     opts = opts or T.ModelOptions()
     opt_cfg = opt_cfg or adamw.OptConfig(total_steps=max(n_steps, 2))
     watchdog = watchdog or StragglerWatchdog()
+    plan = None
+    if mesh is not None:
+        plan = shard_mod.make_plan(mesh, strategy=strategy)
+        if profile_dir:
+            raise NotImplementedError("train: the profiled (traced) step "
+                                      "is not taken on a mesh")
 
     # ---- init or resume --------------------------------------------------
     if params is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         params = T.init_params(gen, cfg)
+    if plan is not None and not any(isinstance(t, smc.DTensor)
+                                    for t in leaves(params)):
+        # whole tensors (the same on every rank): each keeps its blocks
+        params = shard_mod.shard_tree(
+            params, shard_mod.param_shardings(params, cfg, plan))
     if opt_state is None:
         opt_state = adamw.init(params)
     start_step = 0
@@ -111,7 +136,7 @@ def train(cfg: ModelConfig, shape: ShapeConfig, *, n_steps: int = 20,
     step_fn = steps_mod.make_train_step(cfg, opts, opt_cfg,
                                         grad_compression=grad_compression,
                                         n_microbatches=n_microbatches,
-                                        donate=True)
+                                        donate=True, plan=plan)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     # ---- optional measurement (the paper's tool) ---------------------------
@@ -213,7 +238,19 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM: train on a (data, model) mesh of D*M ranks "
+                         "(one process per rank, as torchrun "
+                         "--nproc-per-node starts them)")
+    ap.add_argument("--strategy", default="tp",
+                    choices=("tp", "fsdp", "dp_only"))
     args = ap.parse_args(argv)
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch import mesh as mesh_mod
+        shape_dm = tuple(int(n) for n in args.mesh.split("x"))
+        mesh_mod.init_process(device=args.device)
+        mesh = mesh_mod.make_mesh(shape_dm, ("data", "model"), args.device)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -228,7 +265,8 @@ def main(argv=None):
         cfg, shape, n_steps=args.steps, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, profile_dir=args.profile_dir,
         opts=opts, grad_compression=args.grad_compression, seed=args.seed,
-        resume=args.resume, device=args.device)
+        resume=args.resume, device=args.device, mesh=mesh,
+        strategy=args.strategy)
     print(f"done in {time.monotonic() - t0:.1f}s; "
           f"final loss {history[-1]['loss']:.4f}")
     if paths:

@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import shardmap_compat as smc
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import \
     flash_decode_plain as decode_attention  # noqa: F401  (re-export)
@@ -229,11 +230,35 @@ def chunked_attention(q, k, v, *, q_chunk: int, kv_chunk: int,
                       schedule)
 
 
+def tp_core(attend, q, tp=None):
+    """``attend(q)`` (the attention of q against k/v it closes over) on a
+    rank's heads.  With q heads split over ``tp.axis`` but the kv heads
+    whole (the sharding plan's divisibility guard replicates ``wk``/``wv``
+    when Hkv does not divide over the axis), a local q head's kv group is
+    its *global* head // G: the q heads are all-gathered before the op and
+    this rank's heads sliced from its output, as GSPMD arranges in the
+    reference.  Otherwise ``attend`` runs on the heads as they are (local
+    q and kv heads line up when both are split)."""
+    if tp is None or not tp.q or tp.kv:
+        return attend(q)
+    h = q.shape[2]
+    out = attend(smc.all_gather(q, tp.axis, axis=2, tiled=True))
+    i = smc.axis_index(tp.axis)
+    return out[:, :, i * h:(i + 1) * h]
+
+
+def tp_o_proj(out, wo, tp=None):
+    """The output projection; row-parallel (a psum over the axis) when the
+    heads are split."""
+    y = o_proj(out, wo)
+    return smc.psum(y, tp.axis) if tp is not None and tp.q else y
+
+
 def attention_block(params, x, positions, cfg, *, layer_window: int = 0,
                     kv_cache: Optional[Tuple] = None,
                     cache_pos: Optional[int] = None, q_chunk: int = 512,
                     kv_chunk: int = 512, schedule: str = "dense",
-                    use_kernel: bool = True):
+                    use_kernel: bool = True, tp=None):
     """Attention sub-block.  Returns (y, new_kv_cache).
 
     Training (``kv_cache`` None, the new cache None): causal attention with
@@ -251,22 +276,27 @@ def attention_block(params, x, positions, cfg, *, layer_window: int = 0,
     writes slot ``cache_pos % Smax`` and attends ``length = min(cache_pos
     + 1, Smax)`` slots (order does not matter to attention), and prefill
     keeps the last Smax keys as new tensors, as the JAX version does.
+
+    ``tp`` (``transformer.TP``): inside a sharded step's region the
+    weights hold this rank's heads of a tensor-parallel axis; the kernels
+    run on the local heads (``tp_core``) and the output projection is
+    psum'd over the axis (``tp_o_proj``).
     """
     q, k, v = project_qkv(params, x, cfg, positions)
     if kv_cache is None:
         if use_kernel:
-            out = ops.flash_attention(q, k, v, causal=True,
-                                      window=layer_window)
+            out = tp_core(lambda q_: ops.flash_attention(
+                q_, k, v, causal=True, window=layer_window), q, tp)
         elif q.is_cuda:
             raise ValueError("attention_block: use_kernel=False runs the "
                              "plain attention, which is for CPU tensors; "
                              "on the card training attention is the flash "
                              "kernel")
         else:
-            out = chunked_attention(q, k, v, q_chunk=q_chunk,
-                                    kv_chunk=kv_chunk, window=layer_window,
-                                    schedule=schedule)
-        return o_proj(out, params["wo"]), None
+            out = tp_core(lambda q_: chunked_attention(
+                q_, k, v, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                window=layer_window, schedule=schedule), q, tp)
+        return tp_o_proj(out, params["wo"], tp), None
     S = x.shape[1]
     cache_pos = int(cache_pos)
     k_cache, v_cache = kv_cache
@@ -276,21 +306,22 @@ def attention_block(params, x, positions, cfg, *, layer_window: int = 0,
             slot = cache_pos % smax
             k_cache[:, slot:slot + 1] = k.to(k_cache.dtype)
             v_cache[:, slot:slot + 1] = v.to(v_cache.dtype)
-            out = ops.flash_decode(q[:, 0], k_cache, v_cache,
-                                   min(cache_pos + 1, smax))[:, None]
+            out = tp_core(lambda q_: ops.flash_decode(
+                q_[:, 0], k_cache, v_cache,
+                min(cache_pos + 1, smax))[:, None], q, tp)
         else:       # prefill: the ring holds the last smax keys
             k_cache = k[:, -smax:].to(k_cache.dtype)
             v_cache = v[:, -smax:].to(v_cache.dtype)
-            out = ops.flash_attention(q, k, v, causal=True,
-                                      window=layer_window)
-        return o_proj(out, params["wo"]), (k_cache, v_cache)
+            out = tp_core(lambda q_: ops.flash_attention(
+                q_, k, v, causal=True, window=layer_window), q, tp)
+        return tp_o_proj(out, params["wo"], tp), (k_cache, v_cache)
     k_cache[:, cache_pos:cache_pos + S] = k.to(k_cache.dtype)
     v_cache[:, cache_pos:cache_pos + S] = v.to(v_cache.dtype)
     if S == 1:  # decode
-        out = ops.flash_decode(q[:, 0], k_cache, v_cache,
-                               cache_pos + 1)[:, None]
+        out = tp_core(lambda q_: ops.flash_decode(
+            q_[:, 0], k_cache, v_cache, cache_pos + 1)[:, None], q, tp)
     else:       # prefill against the cache
-        out = chunked_attention(q, k_cache, v_cache, q_chunk=q_chunk,
-                                kv_chunk=kv_chunk, q_offset=cache_pos,
-                                schedule=schedule)
-    return o_proj(out, params["wo"]), (k_cache, v_cache)
+        out = tp_core(lambda q_: chunked_attention(
+            q_, k_cache, v_cache, q_chunk=q_chunk, kv_chunk=kv_chunk,
+            q_offset=cache_pos, schedule=schedule), q, tp)
+    return tp_o_proj(out, params["wo"], tp), (k_cache, v_cache)

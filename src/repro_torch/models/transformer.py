@@ -13,8 +13,24 @@ parameter tree (``{"embed", "unembed", "final_norm", "layers": {"e0":
 ...}}``) so JAX-initialised weights load by key.  Where JAX scans over
 periods, this runs a Python loop.  In training each period is one
 ``torch.utils.checkpoint`` region (``ModelOptions.remat``), as the JAX
-package's remat of the scan body.  MAMBA blocks and the expert-parallel
-MoE path raise ``NotImplementedError`` until their slices land.
+package's remat of the scan body.  MAMBA blocks raise
+``NotImplementedError``: no configuration has one.
+
+On a device mesh (``mesh_args``, a ``MeshCtx``: the sharded steps of
+``launch.steps`` build it) every function here runs on one rank's local
+blocks inside the step's ``shard_map`` region, with the reference's
+global semantics.  Each period's weights are gathered from their storage
+layout (the plan's ``param_shardings``) just in time, inside the period's
+checkpoint region, so the backward gathers them again and the gather's
+transpose (a reduce-scatter) sums their gradients: the attention and
+dense FFN weights over every axis but ``model`` (megatron tensor
+parallelism: q/k/v column-parallel over heads, ``wo`` and ``w2``
+row-parallel, one psum over ``model`` after each), the MoE weights not at
+all (``moe.moe_ffn``'s expert-parallel path gathers its own), every other
+leaf (the embed, the unembed, the xLSTM and mamba weights) over every
+axis.  The residual stream is a rank's batch rows, replicated over
+``model``: the reference's batch-sharding constraint on it holds by
+construction.
 """
 from __future__ import annotations
 
@@ -29,6 +45,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import (ATTN, HYBRID, MLSTM, SLSTM, SWA,
                                       ModelConfig)
+from repro_torch.distributed import shardmap_compat as smc
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -76,6 +93,83 @@ def layer_plan(cfg: ModelConfig) -> Tuple[Tuple[EntrySpec, ...], int]:
     entries = tuple(
         EntrySpec(cfg.blocks[i], i in moe_layers) for i in range(period))
     return entries, cfg.n_layers // period
+
+
+class MeshCtx(NamedTuple):
+    """What a sharded step's region knows of the mesh: the plan
+    (``distributed.sharding.ShardingPlan``) and the storage spec of every
+    parameter leaf (a tree like the params, of ``shardmap_compat.P``)."""
+    plan: Any
+    specs: Any
+
+    @property
+    def mesh(self):
+        return self.plan.mesh
+
+    @property
+    def tp_axis(self) -> Optional[str]:
+        """The tensor-parallel axis, if the strategy has one."""
+        return self.plan.model_axis if self.plan.strategy == "tp" else None
+
+    def n_batch(self) -> int:
+        """How many ways the batch is split."""
+        return self.mesh.axis_size(self.plan.batch_axes())
+
+    def redundancy(self) -> int:
+        """How many ranks compute each batch shard."""
+        return self.mesh.size // self.n_batch()
+
+
+class TP(NamedTuple):
+    """An attention or FFN weight set's tensor parallelism: the axis, and
+    whether the q heads (and ``wo``, ``w1``/``w3``/``w2``) and the kv
+    heads are split over it."""
+    axis: str
+    q: bool
+    kv: bool
+
+
+def _materialize(tree, specs, keep: tuple = ()):
+    """(tree, specs) of a params subtree gathered by
+    ``shardmap_compat.gather_spec``."""
+    if isinstance(tree, dict):
+        pairs = {k: _materialize(v, specs[k], keep) for k, v in tree.items()}
+        return ({k: a for k, (a, _) in pairs.items()},
+                {k: b for k, (_, b) in pairs.items()})
+    return smc.gather_spec(tree, specs, keep)
+
+
+def _period_params(layer_p, layer_specs, ctx: "MeshCtx"):
+    """One period's weights in their compute layout (see the module
+    docstring) and the specs they keep."""
+    keep = (ctx.tp_axis,) if ctx.tp_axis else ()
+    out, specs = {}, {}
+    for ename, p in layer_p.items():
+        out[ename], specs[ename] = {}, {}
+        for k, v in p.items():
+            if k == "moe" and ctx.plan.moe_args() is not None:
+                out[ename][k], specs[ename][k] = v, layer_specs[ename][k]
+                continue
+            kk = keep if k in ("attn", "ffn", "shared") else ()
+            out[ename][k], specs[ename][k] = _materialize(
+                v, layer_specs[ename][k], kk)
+    return out, specs
+
+
+def _tp(specs, ctx, q_key: str, kv_key: Optional[str] = None):
+    """The TP of a weight set from its specs after ``_period_params``."""
+    if ctx is None or ctx.tp_axis is None:
+        return None
+    q = ctx.tp_axis in smc.spec_axes(specs[q_key])
+    kv = ctx.tp_axis in smc.spec_axes(specs[kv_key]) if kv_key else q
+    return TP(ctx.tp_axis, q, kv) if q or kv else None
+
+
+def _unstack(specs):
+    """The specs of one period's slice of stacked leaves."""
+    if isinstance(specs, dict):
+        return {k: _unstack(v) for k, v in specs.items()}
+    return smc.P(*specs[1:])
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -198,21 +292,50 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 # Block application
 # ---------------------------------------------------------------------------
-def _apply_ffn(p, x, cfg):
+def _swiglu(w, x, tp: Optional[TP]):
+    """Dense SwiGLU; row-parallel (a psum over the TP axis) when its
+    hidden dim is split."""
+    y = swiglu(x, w["w1"], w["w3"], w["w2"])
+    return smc.psum(y, tp.axis) if tp is not None and tp.q else y
+
+
+def _moe(p, x, cfg, ctx):
+    """The MoE FFN: expert-parallel under a plan with a model axis; on a
+    mesh without one (``fsdp``, ``dp_only``) the reference runs the
+    one-device MoE over the global batch, so the tokens are gathered, the
+    MoE run on all of them and this rank's rows kept."""
+    kw = dict(n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+              capacity_factor=cfg.moe.capacity_factor)
+    if ctx is None:
+        return moe_mod.moe_ffn(p["moe"], x, **kw)
+    args = ctx.plan.moe_args()
+    if args is not None:
+        return moe_mod.moe_ffn(p["moe"], x, mesh_args=args, d_ff=cfg.d_ff,
+                               **kw)
+    axes = ctx.plan.batch_axes()
+    if ctx.n_batch() == 1:
+        return moe_mod.moe_ffn(p["moe"], x, **kw)
+    b = x.shape[0]
+    y, aux = moe_mod.moe_ffn(p["moe"], smc.all_gather(x, axes, axis=0), **kw)
+    i = smc.axis_index(axes)
+    return y[i * b:(i + 1) * b], aux
+
+
+def _apply_ffn(p, x, cfg, ctx=None, specs=None):
     """Dense or MoE FFN sub-block.  Returns (y, aux): the MoE aux loss,
     zero for a dense FFN (serving leaves it unused)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "moe" in p:
-        y, aux = moe_mod.moe_ffn(
-            p["moe"], x, n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
-            capacity_factor=cfg.moe.capacity_factor)
+        y, aux = _moe(p, x, cfg, ctx)
         if "shared" in p:
-            y = y + swiglu(x, p["shared"]["w1"], p["shared"]["w3"],
-                           p["shared"]["w2"])
+            y = y + _swiglu(p["shared"], x,
+                            _tp(specs["shared"], ctx, "w1") if specs
+                            else None)
         return y, aux
     if "ffn" not in p:
         return torch.zeros_like(x), aux
-    return swiglu(x, p["ffn"]["w1"], p["ffn"]["w3"], p["ffn"]["w2"]), aux
+    return _swiglu(p["ffn"], x, _tp(specs["ffn"], ctx, "w1") if specs
+                   else None), aux
 
 
 def _write_states(cache, new: dict):
@@ -224,12 +347,13 @@ def _write_states(cache, new: dict):
 
 
 def _apply_entry(p, spec: EntrySpec, x, positions, cfg, opts, mode: str,
-                 cache=None, cache_pos=None):
+                 cache=None, cache_pos=None, ctx=None, specs=None):
     """One block.  Returns (x, new_cache, aux): aux is the MoE aux loss
     (zero elsewhere: 0.0 for the xLSTM blocks, which have no FFN); in
     training new_cache is None.  In decode every state (k/v,
     ``ssm``/``conv``, the xLSTM states) is written into ``cache`` in
-    place."""
+    place.  On a mesh ``p`` is the period's weights in their compute
+    layout and ``specs`` their specs (``_period_params``)."""
     _check_entry(spec)
     h = rms_norm(x, p["ln1"])
     decode = mode == "decode"
@@ -250,8 +374,9 @@ def _apply_entry(p, spec: EntrySpec, x, positions, cfg, opts, mode: str,
             new = None
         return x + y, _write_states(cache, new) if decode else new, 0.0
     window = cfg.window if spec.kind in (SWA, HYBRID) else 0
+    tp = _tp(specs["attn"], ctx, "wq", "wk") if specs else None
     y, new_cache = _attention(p["attn"], h, positions, cfg, window, opts,
-                              mode, cache, cache_pos)
+                              mode, cache, cache_pos, tp)
     if spec.kind == HYBRID:
         ssm_state = conv_state = None
         if decode:
@@ -267,24 +392,28 @@ def _apply_entry(p, spec: EntrySpec, x, positions, cfg, opts, mode: str,
         beta = p["beta"].to(x.dtype)
         y = 0.5 * (beta[0] * y + beta[1] * ym)
     x = x + y
-    y2, aux = _apply_ffn(p, rms_norm(x, p["ln2"]), cfg)
+    y2, aux = _apply_ffn(p, rms_norm(x, p["ln2"]), cfg, ctx, specs)
     return x + y2, new_cache, aux
 
 
-def _attention(ap, h, positions, cfg, window, opts, mode, cache, cache_pos):
+def _attention(ap, h, positions, cfg, window, opts, mode, cache, cache_pos,
+               tp=None):
     """Attention sub-block across the three modes.  Returns (y, cache);
-    training returns no cache."""
+    training returns no cache.  ``tp``: the heads split over a mesh axis
+    (``attention.attention_block``)."""
     if mode == "train":
         y, _ = attn_mod.attention_block(
             ap, h, positions, cfg, layer_window=window, q_chunk=opts.q_chunk,
             kv_chunk=opts.kv_chunk, schedule=opts.attn_schedule,
-            use_kernel=opts.use_flash_kernel)
+            use_kernel=opts.use_flash_kernel, tp=tp)
         return y, None
     if mode == "prefill":
         # build the cache from scratch; attention runs the flash kernel
         # (causal, q_offset 0, S == Sk, the layer's window)
         q, k, v = attn_mod.project_qkv(ap, h, cfg, positions)
-        out = ops.flash_attention(q, k, v, causal=True, window=window)
+        out = attn_mod.tp_core(
+            lambda q_: ops.flash_attention(q_, k, v, causal=True,
+                                           window=window), q, tp)
         if window:
             # ring cache: slot i must hold absolute position p with
             # p % w == i, so the kept tail is rolled by S % w
@@ -293,15 +422,15 @@ def _attention(ap, h, positions, cfg, window, opts, mode, cache, cache_pos):
             k = torch.roll(k[:, -w:], S % w, dims=1)
             v = torch.roll(v[:, -w:], S % w, dims=1)
         dtype = model_dtype(cfg)
-        return attn_mod.o_proj(out, ap["wo"]), {"k": k.to(dtype),
-                                                "v": v.to(dtype)}
+        return attn_mod.tp_o_proj(out, ap["wo"], tp), {"k": k.to(dtype),
+                                                       "v": v.to(dtype)}
     if mode != "decode":
         raise NotImplementedError(f"mode {mode!r}")
     y, kv = attn_mod.attention_block(
         ap, h, positions, cfg, layer_window=window,
         kv_cache=(cache["k"], cache["v"]), cache_pos=cache_pos,
         q_chunk=opts.q_chunk, kv_chunk=opts.kv_chunk,
-        schedule=opts.attn_schedule)
+        schedule=opts.attn_schedule, tp=tp)
     return y, {"k": kv[0], "v": kv[1]}
 
 
@@ -315,19 +444,27 @@ def _index(tree, i: int):
     return tree[i]
 
 
-def embed_inputs(params, cfg: ModelConfig, tokens, embeds):
+def _top(params, name: str, ctx):
+    """A top-level leaf (embed, unembed, final_norm) whole: gathered over
+    every axis on a mesh."""
+    if ctx is None:
+        return params[name]
+    return smc.gather_spec(params[name], ctx.specs[name])[0]
+
+
+def embed_inputs(params, cfg: ModelConfig, tokens, embeds, ctx=None):
     """tokens: (B, S_text) integer or None; embeds: (B, S_front, d) or
     None."""
     parts = []
     if embeds is not None:
         parts.append(embeds.to(model_dtype(cfg)))
     if tokens is not None:
-        parts.append(params["embed"][tokens])
+        parts.append(_top(params, "embed", ctx)[tokens])
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 def _stack_forward(params, x, cfg, opts, mode, cache=None, cache_pos=None,
-                   positions=None):
+                   positions=None, ctx=None):
     """Runs the periods in order.  Returns (x, new_cache).  In decode the
     new states (k/v, ssm, conv) are written into ``cache`` in place and
     ``cache`` itself is returned; prefill returns freshly stacked
@@ -336,12 +473,17 @@ def _stack_forward(params, x, cfg, opts, mode, cache=None, cache_pos=None,
     built: Dict[str, list] = {f"e{i}": [] for i in range(len(entries))}
     for p in range(n_periods):
         layer_p = _index(params["layers"], p)
+        specs = None
+        if ctx is not None:
+            layer_p, specs = _period_params(
+                layer_p, _unstack(ctx.specs["layers"]), ctx)
         for i, spec in enumerate(entries):
             ename = f"e{i}"
             c = _index(cache[ename], p) if cache is not None else None
             x, nc, _ = _apply_entry(layer_p[ename], spec, x, positions,
                                     cfg, opts, mode, cache=c,
-                                    cache_pos=cache_pos)
+                                    cache_pos=cache_pos, ctx=ctx,
+                                    specs=specs and specs[ename])
             built[ename].append(nc)
     if mode == "decode":
         return x, cache
@@ -364,17 +506,24 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _period(layer_p, x, positions, cfg, opts, entries):
-    """One period of the stack in training.  Returns (x, aux)."""
+def _period(layer_p, x, positions, cfg, opts, entries, ctx=None):
+    """One period of the stack in training.  Returns (x, aux).  On a
+    mesh the period's weights are gathered here, inside its checkpoint
+    region (the backward gathers them again)."""
+    specs = None
+    if ctx is not None:
+        layer_p, specs = _period_params(
+            layer_p, _unstack(ctx.specs["layers"]), ctx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, spec in enumerate(entries):
         x, _, a = _apply_entry(layer_p[f"e{i}"], spec, x, positions, cfg,
-                               opts, "train")
+                               opts, "train", ctx=ctx,
+                               specs=specs and specs[f"e{i}"])
         aux = aux + a
     return x, aux
 
 
-def _train_stack(params, x, cfg, opts, positions):
+def _train_stack(params, x, cfg, opts, positions, ctx=None):
     """The periods in order, each one checkpointed with ``opts.remat``:
     ``nothing`` saves only the period's inputs, ``dots_no_batch`` also
     the outputs of its matmuls, ``everything`` saves all (no recompute,
@@ -389,7 +538,7 @@ def _train_stack(params, x, cfg, opts, positions):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in range(n_periods):
         args = (_index(params["layers"], p), x, positions, cfg, opts,
-                entries)
+                entries, ctx)
         x, a = (checkpoint(_period, *args, **kw) if kw is not None
                 else _period(*args))
         aux = aux + a
@@ -397,13 +546,14 @@ def _train_stack(params, x, cfg, opts, positions):
 
 
 def forward(params, cfg: ModelConfig, tokens=None, embeds=None, *,
-            opts: ModelOptions = ModelOptions()):
+            opts: ModelOptions = ModelOptions(), mesh_args=None):
     """Training forward.  Returns (hidden (B,S,d) after the final norm,
-    aux: the MoE aux loss summed over layers, fp32)."""
-    x = embed_inputs(params, cfg, tokens, embeds)
+    aux: the MoE aux loss summed over layers, fp32).  ``mesh_args``: a
+    ``MeshCtx`` (the rank's blocks; B is its batch rows)."""
+    x = embed_inputs(params, cfg, tokens, embeds, mesh_args)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, aux = _train_stack(params, x, cfg, opts, positions)
-    return rms_norm(x, params["final_norm"]), aux
+    x, aux = _train_stack(params, x, cfg, opts, positions, mesh_args)
+    return rms_norm(x, _top(params, "final_norm", mesh_args)), aux
 
 
 def _chunk_loss(h, lab, unembed, z_loss: float):
@@ -421,7 +571,8 @@ def _chunk_loss(h, lab, unembed, z_loss: float):
 
 
 def lm_loss(params, cfg: ModelConfig, hidden, labels, *,
-            opts: ModelOptions = ModelOptions(), z_loss: float = 1e-4):
+            opts: ModelOptions = ModelOptions(), z_loss: float = 1e-4,
+            mesh_args=None):
     """Chunked cross-entropy over the unembedding.  labels: (B,S) integer,
     positions with label < 0 are masked.  Each chunk of ``loss_chunk``
     positions is a checkpoint region, so its (B, chunk, V) fp32 logits
@@ -429,46 +580,67 @@ def lm_loss(params, cfg: ModelConfig, hidden, labels, *,
     the tokens, n_tokens), fp32."""
     S = hidden.shape[1]
     c = pick_chunk(S, opts.loss_chunk)
+    unembed = _top(params, "unembed", mesh_args)
     loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
     ntok = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(S // c):
         l_i, n_i = checkpoint(_chunk_loss, hidden[:, i * c:(i + 1) * c],
                               labels[:, i * c:(i + 1) * c],
-                              params["unembed"], z_loss, use_reentrant=False)
+                              unembed, z_loss, use_reentrant=False)
         loss = loss + l_i
         ntok = ntok + n_i
     return loss, ntok
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *,
-            opts: ModelOptions = ModelOptions()):
+            opts: ModelOptions = ModelOptions(), mesh_args=None):
     """Scalar mean LM loss + 0.01 x the MoE aux.  batch: dict(tokens?,
-    embeds?, labels).  Returns (total, {"nll", "aux", "ntok"})."""
+    embeds?, labels).  Returns (total, {"nll", "aux", "ntok"}).
+
+    On a mesh (``mesh_args``) the batch is this rank's rows, and the
+    first value is this rank's share of the global loss, the shares of
+    all ranks summing to it: the label count is psum'd over the batch
+    axes, and each term is divided by the number of ranks that compute
+    it alike (a batch shard's loss by the ranks replicating that shard,
+    the aux, the same on every rank, by all of them).  The gradients of
+    the shares, summed over the ranks, are the global loss's (the
+    convention of ``jax.grad`` through ``shard_map``).  The metrics are
+    global: {"nll", "aux", "ntok", "loss"}."""
     hidden, aux = forward(params, cfg, batch.get("tokens"),
-                          batch.get("embeds"), opts=opts)
-    loss, ntok = lm_loss(params, cfg, hidden, batch["labels"], opts=opts)
-    nll = loss / torch.clamp(ntok, min=1.0)
-    return nll + 0.01 * aux, {"nll": nll, "aux": aux, "ntok": ntok}
+                          batch.get("embeds"), opts=opts, mesh_args=mesh_args)
+    loss, ntok = lm_loss(params, cfg, hidden, batch["labels"], opts=opts,
+                         mesh_args=mesh_args)
+    if mesh_args is None:
+        nll = loss / torch.clamp(ntok, min=1.0)
+        return nll + 0.01 * aux, {"nll": nll, "aux": aux, "ntok": ntok}
+    axes = mesh_args.plan.batch_axes()
+    with torch.no_grad():
+        ntok = smc.psum(ntok.detach(), axes)
+        nll = smc.psum(loss.detach(), axes) / torch.clamp(ntok, min=1.0)
+    share = (loss / torch.clamp(ntok, min=1.0) / mesh_args.redundancy()
+             + 0.01 * aux / mesh_args.mesh.size)
+    return share, {"nll": nll, "aux": aux.detach(), "ntok": ntok,
+                   "loss": nll + 0.01 * aux.detach()}
 
 
-def _unembed_last(params, x):
-    h = rms_norm(x[:, -1:], params["final_norm"])
-    return (h @ params["unembed"])[:, 0].float()
+def _unembed_last(params, x, ctx=None):
+    h = rms_norm(x[:, -1:], _top(params, "final_norm", ctx))
+    return (h @ _top(params, "unembed", ctx))[:, 0].float()
 
 
 def prefill(params, cfg: ModelConfig, tokens=None, embeds=None, *,
-            opts: ModelOptions = ModelOptions()):
+            opts: ModelOptions = ModelOptions(), mesh_args=None):
     """Serving prefill.  Returns (last_logits (B,V) fp32, cache)."""
-    x = embed_inputs(params, cfg, tokens, embeds)
+    x = embed_inputs(params, cfg, tokens, embeds, mesh_args)
     positions = torch.arange(x.shape[1], device=x.device)
     x, cache = _stack_forward(params, x, cfg, opts, "prefill",
-                              positions=positions)
-    return _unembed_last(params, x), cache
+                              positions=positions, ctx=mesh_args)
+    return _unembed_last(params, x, mesh_args), cache
 
 
 def decode_step(params, cfg: ModelConfig, cache, token=None, embed=None,
                 pos: Optional[int] = None, *,
-                opts: ModelOptions = ModelOptions()):
+                opts: ModelOptions = ModelOptions(), mesh_args=None):
     """One serving step: one new token against the cache.
 
     token: (B,) integer (or embed: (B,1,d)).  pos: the absolute position
@@ -476,12 +648,13 @@ def decode_step(params, cfg: ModelConfig, cache, token=None, embed=None,
     the cache updated in place.
     """
     if embed is None:
-        x = params["embed"][token[:, None]]
+        x = _top(params, "embed", mesh_args)[token[:, None]]
     else:
         x = embed.to(model_dtype(cfg))
     pos = int(pos)
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
     x, cache = _stack_forward(params, x, cfg, opts, "decode", cache=cache,
-                              cache_pos=pos, positions=positions)
-    return _unembed_last(params, x), cache
+                              cache_pos=pos, positions=positions,
+                              ctx=mesh_args)
+    return _unembed_last(params, x, mesh_args), cache

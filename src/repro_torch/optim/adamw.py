@@ -18,6 +18,13 @@ leading axis, any other leaf whole.  So no fp32 temporary exceeds one
 period's slice of a stacked leaf or one unstacked leaf (the embed, the
 unembed): yi-6b's stacked ``w1`` is 2.9 GB in bf16, and whole-leaf fp32
 temporaries of it would not fit beside its moments on one 80 GB card.
+
+On a mesh the trees are DTensors (``init`` gives the moments the
+parameters' placements) and a sharded step (``launch.steps``) hands
+``update_`` their local blocks with the parameters' specs: the update is
+elementwise, so it runs on the blocks as they are, and the clip reads
+the norm of the global gradient, each leaf's sum of squares psum'd over
+the axes its blocks are split over (a replicated leaf is counted once).
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.distributed import shardmap_compat as smc
 from repro_torch.tree import leaves, leaves_with_paths, tree_map
 
 
@@ -63,8 +71,14 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(params) -> AdamState:
-    """Step 0 and fp32 zero moments on each parameter's device."""
+    """Step 0 and fp32 zero moments on each parameter's device; a DTensor
+    parameter's moments are DTensors of its placements (each rank's zeros
+    the size of its block)."""
     def zeros(p):
+        if isinstance(p, smc.DTensor):
+            return smc.like(p, torch.zeros(smc.local(p).shape,
+                                           dtype=torch.float32,
+                                           device=p.device))
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     leaf = leaves(params)[0]
     return AdamState(step=torch.zeros((), dtype=torch.int32,
@@ -80,23 +94,39 @@ def slices(path: tuple, x: torch.Tensor) -> list:
         else [x]
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, specs=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32, summed one
-    slice (``slices``) at a time in leaf order."""
-    total = torch.zeros((), dtype=torch.float32,
-                        device=leaves_with_paths(tree)[0][1].device)
+    slice (``slices``) at a time in leaf order.  With ``specs`` (a tree of
+    ``shardmap_compat.P`` like ``tree``, whose leaves are local blocks, in
+    a bound mesh region) the sums of the leaves split over the same axes
+    are psum'd over them together: the norm of the global tree."""
+    dev = leaves_with_paths(tree)[0][1].device
+    spec_of = dict(leaves_with_paths(specs)) if specs is not None else {}
+    totals: dict = {}
     for path, x in leaves_with_paths(tree):
+        axes = smc.spec_axes(spec_of.get(path, ()))
+        total = totals.get(axes)
+        if total is None:
+            total = torch.zeros((), dtype=torch.float32, device=dev)
         for s in slices(path, x):
             total = total + s.float().square().sum()
+        totals[axes] = total
+    total = None
+    for axes, t in totals.items():
+        t = smc.psum(t, axes) if axes else t
+        total = t if total is None else total + t
     return torch.sqrt(total)
 
 
-def update_(cfg: OptConfig, grads, state: AdamState, params) -> dict:
+def update_(cfg: OptConfig, grads, state: AdamState, params,
+            specs=None) -> dict:
     """The AdamW step with ``params`` and ``state`` donated: the new
     parameters, moments and step are written into the tensors given, one
     slice at a time, and ``grads`` is left as it is.  Returns the metrics
-    {"grad_norm", "lr"}.  Callers run it under ``torch.no_grad()``."""
-    gnorm = global_norm(grads)
+    {"grad_norm", "lr"}.  Callers run it under ``torch.no_grad()``.
+    ``specs``: the trees are a rank's local blocks of sharded ones under
+    these specs (``global_norm``)."""
+    gnorm = global_norm(grads, specs)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     state.step.add_(1)

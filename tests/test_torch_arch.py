@@ -206,7 +206,9 @@ def _port_leaves(tree):
 def test_specs_match_the_reference_input_specs(name):
     """Every input of the four shapes, tree, shapes and dtypes, as the
     reference's ``input_specs`` with no plan gives them, from the meta
-    device (nothing allocated)."""
+    device (nothing allocated).  With a plan the same stand-ins come back
+    with their shardings beside them (their specs are held to the
+    reference's in tests/test_torch_mesh.py)."""
     cfg, jcfg = get_config(name), jax_get_config(name)
     j_params = jax_specs.params_struct(jcfg)
     t_params = specs.params_struct(cfg)
@@ -230,8 +232,12 @@ def test_specs_match_the_reference_input_specs(name):
         else:
             assert _port_leaves(specs.decode_struct(cfg, shape)) == \
                 _jax_leaves(jax_specs.decode_struct(jcfg, JAX_SHAPES[key]))
-    with pytest.raises(NotImplementedError):
-        specs.input_specs(cfg, SHAPES["train_4k"], plan=object())
+    from repro_torch.distributed.sharding import make_plan
+    from repro_torch.launch.mesh import abstract_mesh
+    plan = make_plan(abstract_mesh((1, 1), ("data", "model")))
+    sharded = specs.input_specs(cfg, SHAPES["train_4k"], plan=plan)
+    assert sorted(sharded.pop("shardings")) == sorted(sharded)
+    assert _port_leaves(sharded["params"]) == _port_leaves(t_params)
 
 
 @pytest.mark.parametrize("lead,shape", [((3,), (5, 7)), ((2,), (4, 3, 6)),

@@ -2,7 +2,6 @@
 given the same JAX-initialised parameters carried across through numpy.
 On the CPU both attention wrappers run their plain versions."""
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -18,7 +17,6 @@ from repro_torch.configs.base import MAMBA
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as serve_mod
-from repro_torch.models import moe
 from repro_torch.models import transformer as T
 
 # one intra-op thread: the suite runs in several workers at once, beside
@@ -158,13 +156,10 @@ def test_init_cache_and_grow_match_jax():
 
 
 def test_unported_paths_raise():
-    """Still unported: MAMBA blocks and the expert-parallel MoE path."""
+    """Still unported: MAMBA blocks (no configuration has one; the
+    expert-parallel MoE path is ported, tests/test_torch_mesh.py)."""
     cfg, _ = configs("float32")
     gen = torch.Generator()
     with pytest.raises(NotImplementedError):
         T.init_params(gen, dataclasses.replace(cfg, block_pattern=(MAMBA,)))
-    mesh_args = types.SimpleNamespace(mesh=object())
-    with pytest.raises(NotImplementedError):
-        moe.moe_ffn({}, torch.zeros(1, 2, 4), n_experts=2, top_k=1,
-                    capacity_factor=1.0, mesh_args=mesh_args)
 

@@ -168,7 +168,10 @@ def test_ef_compress_tree_matches_jax():
 
 
 def test_compressed_psum_waits_for_multi_device():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``compressed_psum`` reduces over a mesh axis inside a mesh region
+    (tests/test_torch_mesh.py runs it over 4 ranks); outside one there is
+    no axis to sum over, and it says so."""
+    with pytest.raises(RuntimeError, match="no mesh is bound"):
         comp.compressed_psum(torch.zeros(4), "pod")
 
 
