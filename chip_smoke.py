@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Every path runs at published widths and full depth but qwen2-1.5b's,
-granite-moe-1b-a400m's, hymba-1.5b's and xlstm-125m's, which run at 8 of
-28, 8 of 24, 8 of 32 and 6 of 12 layers (``CUT_DEPTH``), and the
-profiled starcoder2-15b serve of 10, at 10 of 40.  Phases, each of which raises (non-zero exit, no result
+granite-moe-1b-a400m's, hymba-1.5b's and xlstm-125m's, which run at 6 of
+28, 6 of 24, 6 of 32 and 6 of 12 layers (``CUT_DEPTH``; the multi-rank
+phase's granite-moe at 8, ``MR_LAYERS``), and the profiled
+starcoder2-15b serve, at 6 of 40.  Phases, each of which raises (non-zero exit, no result
 line) on failure:
 
 1. refuse to run without CUDA; print the card's name and power limit;
@@ -146,7 +147,19 @@ line) on failure:
    rank), with one layer's attention gathered against the whole
    layer's, the sharded prefill and decode steps against the unsharded
    ones and a sharded checkpoint restored whole, bitwise; each rank's
-   step wall, busy and idle share, collectives and peak memory.
+   step wall, busy and idle share, collectives and peak memory.  Also:
+   the dry run of the same step (``launch.dryrun.dry_run`` on
+   the live mesh, recorded on meta tensors) held to it, at (1, 1) its
+   FLOPs to ``FlopCounterMode``'s over the step on the card, its peak to
+   ``max_memory_allocated`` within 10% and its roofline to at most the
+   device's busy time, at (1, 2) its collectives to the collective ops
+   torch.profiler finds in a step; a serve with the cache split over its
+   sequence (``kv_seq_axis="model"``: 4 x 512 prefill, 7 decode steps,
+   every kv head of 260 slots a rank, the ranks' partial attentions
+   merged by log-sum-exp) against the unsharded steps; the decode kernel
+   with its lse output at those shapes, and at length 0, against its
+   plain version; and one profiled train step a rank, each rank's
+   directory merged by ``aggregate``.
 
 The line before the last is a JSON object with one entry per kernel and
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -184,12 +197,12 @@ PATHS = {"qwen2-1.5b": dict(prompt=512, cpu_prompt=64, cpu_window=0),
 # sweep's budget): granite-moe runs both attention kernels at D = 64,
 # G = 2; xlstm runs none (the JAX package has no mLSTM kernel), and its
 # 2-layer CPU check keeps one layer of each block kind.  xlstm's prompt
-# is cut from 512 to 96: torch.export unrolls the sLSTM's time loop
+# is cut from 512 to 64: torch.export unrolls the sLSTM's time loop
 # (about 74 ops a token), and on the card's host the prefill step's
-# export took 235.6 s at 512 (38,931 ops) and 56.9-63.8 s at 112 (9471)
+# export took 235.6 s at 512 (38,931 ops), 56.9-63.8 s at 112 (9471)
 SERVING_PATHS = {
     "granite-moe-1b-a400m": dict(prompt=512, cpu_prompt=64, cpu_window=0),
-    "xlstm-125m": dict(prompt=96, cpu_prompt=64, cpu_window=0,
+    "xlstm-125m": dict(prompt=64, cpu_prompt=64, cpu_window=0,
                        cpu_blocks=("mlstm", "slstm"))}
 # where the serving paths and the sweep write their profiles and
 # databases (tens of MB a model)
@@ -207,16 +220,16 @@ SOURCES = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
 
 
 # the first four paths run every path (serving, the step breakdowns,
-# training) at a cut depth and published widths: hymba 8 of 32 layers and
-# xlstm one period of 6 of 12, whose host-bound steps and exports took the
-# most wall per check of the script (hymba's serving export 47 s, a
-# full-depth train step 3.4 s for 0.94 s of device time; xlstm's export
-# 46 s, 64,000 device kernels a train step); qwen2 8 of 28 and granite-moe
-# 8 of 24, whose profiled exports (a step's export 19-46 s, about linear in
-# layers) took 200 s of a run whose host wall varies 1.3-1.7x between
-# machines, so that the single-card configurations' serves and training
-# keep the room under the time limit
-CUT_DEPTH = {"qwen2-1.5b": 8, "granite-moe-1b-a400m": 8, "hymba-1.5b": 8,
+# training) at a cut depth and published widths, 6 layers each (xlstm one
+# period of 6 of 12): their host-bound steps and exports took the most
+# wall per check of the script (hymba's serving export 47 s at 8 layers,
+# a full-depth train step 3.4 s for 0.94 s of device time; xlstm's export
+# 46 s, 64,000 device kernels a train step; qwen2's and granite-moe's
+# profiled exports 19-46 s a step, about linear in layers), and with
+# qwen2, granite-moe and hymba at 8 layers and the multi-rank phase's dry
+# run, seq-split serve and profiled steps the script took 962.7 s on an
+# NVIDIA H100 80GB HBM3 at 700 W, on a host whose wall varies 1.3-1.7x
+CUT_DEPTH = {"qwen2-1.5b": 6, "granite-moe-1b-a400m": 6, "hymba-1.5b": 6,
              "xlstm-125m": 6}
 
 
@@ -627,8 +640,10 @@ def device_ms_by_kernel(fn, iters: int = 20, attempts: int = 5) -> dict:
         if ka and all(e.count % iters == 0 for e in ka):
             return {e.key: e.self_device_time_total / iters / 1e3
                     for e in ka}
+    odd = [{k: n for k, n in w.items() if n % iters} for w in seen]
     raise RuntimeError(f"torch.profiler dropped device records in every "
-                       f"window of {iters} calls: {seen}")
+                       f"window of {iters} calls: the counts that are not "
+                       f"a multiple, by window, {odd}")
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -676,7 +691,7 @@ def _decode_at(q, kc, vc, length: int, n_splits: int, keys_per_split: int):
     err = fd._lib().flash_decode_fwd_bf16(
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b, h,
         kc.shape[2], kc.shape[1], d, length, n_splits, keys_per_split,
-        torch.cuda.current_stream().cuda_stream)
+        None, torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_decode_fwd_bf16")
     return out
 
@@ -1303,14 +1318,13 @@ def _temper(params) -> dict:
     return params
 
 
-def init_params(name: str) -> dict:
+def init_params(name: str, cfg=None) -> dict:
     """Seeded random weights of one model at full width and its path's
-    depth (``_config``)."""
-    from repro_torch.configs import get_config
+    depth (``_config``; ``cfg`` in its place)."""
     from repro_torch.models import transformer as T
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    return T.init_params(gen, _config(name))
+    return T.init_params(gen, cfg or _config(name))
 
 
 def _has_attention(cfg) -> bool:
@@ -1543,7 +1557,7 @@ BIG_PATHS = {
 # kernel at G = 12 under the port's profiler, at full width and 10 of its
 # 40 layers (at 40, its two steps' exports took 57 s of the card's host)
 PROFILED_BIG = "starcoder2-15b"
-PROFILED_BIG_LAYERS = 10
+PROFILED_BIG_LAYERS = 6
 
 
 def _live_blocks() -> set:
@@ -2726,6 +2740,7 @@ def run_examples(timeout: float = 400.0) -> dict:
 # torch.distributed, in child processes (this process joins no group)
 # ---------------------------------------------------------------------------
 MULTI_RANK = "granite-moe-1b-a400m"
+MR_LAYERS = 8    # the multi-rank phase's depth (CUT_DEPTH's is 6)
 MR_BATCH, MR_SEQ, MR_STEPS = 4, 512, 3
 MR_PROMPT, MR_DECODE = 512, 8
 # the sharded losses and grad norms against the unsharded run's, relative
@@ -2737,9 +2752,23 @@ MR_PROMPT, MR_DECODE = 512, 8
 MR_LOSS_TOL = 1e-3
 MR_DELTA_TOL = 5e-2
 MR_TIMEOUT = 300.0
+# the dry run's peak (``launch.dryrun.graph_memory``: a liveness walk over
+# the recorded step) against torch.cuda.max_memory_allocated over the
+# step on the card, relative to the measured peak
+MR_PEAK_TOL = 0.10
+# the dry run's FLOPs (the recorded step's products and the kernels'
+# interiors) against FlopCounterMode over the step on the card: the same
+# products, summed in another order
+MR_FLOPS_TOL = 1e-9
 # a collective as torch.profiler names it by its backend (the c10d op
 # around it is a second event of the same call)
 MR_COLLECTIVE = re.compile(r"^(nccl|gloo):")
+
+
+def _mr_config():
+    """granite-moe at published widths and ``MR_LAYERS`` layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MULTI_RANK), n_layers=MR_LAYERS)
 
 
 def _mr_counts_zero() -> None:
@@ -2791,6 +2820,10 @@ def _mr_step_timing(step, params, opt_state, batch,
             end = b
     coll = [e for e in prof.events() if e.device_type.name == "CPU"
             and MR_COLLECTIVE.search(e.name)]
+    by_kind: dict = {}
+    for e in coll:   # "gloo:all_reduce" -> "all-reduce"
+        kind = e.name.split(":", 1)[1].replace("_", "-")
+        by_kind[kind] = by_kind.get(kind, 0) + 1
     nccl_dev = sum(e.time_range.end - e.time_range.start
                    for e in prof.events()
                    if e.device_type.name == "CUDA" and "nccl" in e.name)
@@ -2801,7 +2834,8 @@ def _mr_step_timing(step, params, opt_state, batch,
                 collective_host_ms=sum(e.time_range.end - e.time_range.start
                                        for e in coll) / 1e3,
                 nccl_device_ms=nccl_dev / 1e3,
-                kinds=sorted({e.name for e in coll}))
+                kinds=sorted({e.name for e in coll}),
+                collectives_by_kind=by_kind)
 
 
 def _mr_kernel_times(h: int, hkv: int) -> dict:
@@ -2812,7 +2846,7 @@ def _mr_kernel_times(h: int, hkv: int) -> dict:
     from repro_torch.kernels import decode_attention as fd
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    cfg = _config(MULTI_RANK)
+    cfg = _mr_config()
     d = cfg.head_dim
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
@@ -2840,10 +2874,57 @@ def _mr_kernel_times(h: int, hkv: int) -> dict:
     return out
 
 
+def _mr_seq_kernel(rank: int, world: int) -> dict:
+    """The decode kernel with its log-sum-exp output at a rank's shapes in
+    the seq-split serve (the q heads gathered, every kv head, this rank's
+    slots of the cache): timed as ``time_kernels`` times a path's (the
+    bound and SDPA over the valid slots), and held against its plain
+    version, output and lse, at a full slice, a part of one and a slice
+    with no valid slot (length 0: output 0, lse -inf).  Returns
+    {"flash_decode": (times, max abs err of the output and the lse)}."""
+    from repro_torch.kernels import decode_attention as fd
+    from repro_torch.kernels import ops
+    cfg = _mr_config()
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n = (MR_PROMPT + MR_DECODE) // world
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13 + rank)
+    q = _randn((MR_BATCH, h, d), gen, 0.5)
+    kc = _randn((MR_BATCH, n, hkv, d), gen, 0.5)
+    vc = _randn((MR_BATCH, n, hkv, d), gen, 0.5)
+    err = 0.0
+    for length in (n, n // 2 + 1, 0):
+        out, lse = ops.flash_decode(q, kc, vc, length, with_lse=True)
+        want, want_lse = fd.flash_decode_plain(q, kc, vc, length,
+                                               with_lse=True)
+        if not torch.equal(out, ops.flash_decode(q, kc, vc, length)):
+            raise AssertionError(f"flash_decode: the output with lse "
+                                 f"differs from the output without, at "
+                                 f"length {length}")
+        if length == 0:
+            if out.any() or not torch.isneginf(lse).all():
+                raise AssertionError("flash_decode at length 0: output "
+                                     "not 0 or lse not -inf")
+            continue
+        err = max(err, _err(out, want)[0],
+                  float((lse - want_lse).abs().max()))
+        if float((lse - want_lse).abs().max()) > TOL["atol"]:
+            raise AssertionError(f"flash_decode lse off its plain version "
+                                 f"at length {length}")
+    kl, vl = (c.transpose(1, 2) for c in (kc, vc))
+    fns = dict(ms=lambda: ops.flash_decode(q, kc, vc, n, with_lse=True),
+               plain_ms=lambda: fd.flash_decode_plain(q, kc, vc, n,
+                                                      with_lse=True),
+               library_ms=lambda: F.scaled_dot_product_attention(
+                   q[:, :, None], kl, vl, enable_gqa=True))
+    return {"flash_decode": (_timed(fns, *fd.work(MR_BATCH, h, hkv, d,
+                                                  n))[0], err)}
+
+
 def _mr_setup(mesh):
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed import sharding as S
-    cfg = _config(MULTI_RANK)
+    cfg = _mr_config()
     plan = S.make_plan(mesh, strategy="tp")
     shape = ShapeConfig("train", MR_SEQ, MR_BATCH, "train")
     return cfg, plan, shape, _train_opts(MR_SEQ)
@@ -2868,7 +2949,14 @@ def _mr_train(cfg, shape, opts, params, mesh=None) -> dict:
                 wall_s=time.perf_counter() - t0)
 
 
-def _mr_timed_step(cfg, plan, opts, params, profiled: bool = True) -> dict:
+def _mr_timed_step(cfg, plan, opts, params, profiled: bool = True,
+                   count_flops: bool = False) -> dict:
+    """``_mr_step_timing`` of the donated step, its peak memory (from
+    before its AdamW state is made: every other tensor of the process is
+    the caller's to free) and, with ``count_flops``, the FLOPs that
+    ``FlopCounterMode`` counts over one more step (its products and the
+    kernels' ``work``)."""
+    from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.launch import steps as steps_mod
     from repro_torch.optim import adamw
     torch.cuda.reset_peak_memory_stats()
@@ -2878,7 +2966,30 @@ def _mr_timed_step(cfg, plan, opts, params, profiled: bool = True) -> dict:
     batch = _lm_batch(cfg, MR_BATCH, MR_SEQ)
     out = _mr_step_timing(step, params, opt, batch, profiled)
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if count_flops:
+        with FlopCounterMode(display=False) as counter:
+            step(params, opt, batch)
+        torch.cuda.synchronize()
+        out["flops"] = float(counter.get_total_flops())
     return out
+
+
+def _mr_dry_run(cfg, plan, shape, opts, desc: str) -> dict:
+    """The dry run (``launch.dryrun.dry_run``) of this rank's train step on
+    the live mesh: the step recorded on meta tensors (nothing runs on the
+    card, no collective moves), its roofline and its memory."""
+    from repro_torch.launch import dryrun
+    t0 = time.monotonic()
+    rec = dryrun.dry_run(cfg, shape, plan, label=f"{MULTI_RANK}_{desc}",
+                         mesh_desc=desc, opts=opts)
+    return dict(flops=rec["cost"]["flops"],
+                peak_bytes=rec["memory"]["peak_per_device"],
+                argument_bytes=rec["memory"]["argument_bytes"],
+                step_time_ms=rec["roofline"]["step_time_s"] * 1e3,
+                dominant=rec["roofline"]["dominant"],
+                collectives=rec["collectives"], kernels=rec["kernels"],
+                graph_nodes=rec["graph_nodes"],
+                seconds=time.monotonic() - t0)
 
 
 def _mr_one(mesh, rank: int, d: str) -> dict:
@@ -2892,7 +3003,7 @@ def _mr_one(mesh, rank: int, d: str) -> dict:
     cfg, plan, shape, opts = _mr_setup(mesh)
     kernels = _mr_kernel_times(cfg.n_heads, cfg.n_kv_heads)
     del kernels["flash_decode"]     # no decode on this path
-    p0 = _temper(init_params(MULTI_RANK))
+    p0 = _temper(init_params(MULTI_RANK, _mr_config()))
     # the unsharded runs, then the sharded ones without the whole weights:
     # each holds one copy of the weights beside the one it trains
     unsharded = _mr_train(cfg, shape, opts, tree_map(torch.clone, p0))
@@ -2902,9 +3013,14 @@ def _mr_one(mesh, rank: int, d: str) -> dict:
     sp = S.shard_tree(p0, S.param_shardings(p0, cfg, plan))
     del p0
     sharded = _mr_train(cfg, shape, opts, tree_map(torch.clone, sp), mesh)
-    timing = _mr_timed_step(cfg, plan, opts, tree_map(torch.clone, sp))
+    # the measured step holds its own inputs alone: its peak is the dry
+    # run's to match
+    params = tree_map(torch.clone, sp)
+    del sp
+    timing = _mr_timed_step(cfg, plan, opts, params, count_flops=True)
+    dry = _mr_dry_run(cfg, plan, shape, opts, "1x1")
     return dict(unsharded=unsharded, sharded=sharded, timing=timing,
-                timing_unsharded=timing_unsharded, kernels=kernels)
+                timing_unsharded=timing_unsharded, kernels=kernels, dry=dry)
 
 
 def _mr_two(mesh, rank: int, d: str) -> dict:
@@ -2923,8 +3039,11 @@ def _mr_two(mesh, rank: int, d: str) -> dict:
     cfg, plan, shape, opts = _mr_setup(mesh)
     m = mesh.shape["model"]
     h, hkv = cfg.n_heads // m, cfg.n_kv_heads // m
+    # the kernels' windows first: later windows of the process lose
+    # records (ROADMAP §3)
     kernels = _mr_kernel_times(h, hkv)
-    p0 = _temper(init_params(MULTI_RANK))
+    seq_kernels = _mr_seq_kernel(rank, mesh.size)
+    p0 = _temper(init_params(MULTI_RANK, _mr_config()))
     sp = S.shard_tree(p0, S.param_shardings(p0, cfg, plan))
     attn = sp["layers"]["e0"]["attn"]
     assert smc.local(attn["wq"]).shape[2] == h and \
@@ -2951,19 +3070,31 @@ def _mr_two(mesh, rank: int, d: str) -> dict:
     toks = torch.randint(0, cfg.vocab, (MR_BATCH, MR_PROMPT + MR_DECODE),
                          generator=gen, device="cuda")
 
-    def serve_steps(params, pl):
-        pre = steps_mod.make_prefill_step(cfg, opts, plan=pl)
+    def serve_steps(params, pl, kv_seq_axis=None):
+        pre = steps_mod.make_prefill_step(cfg, opts, plan=pl,
+                                          kv_seq_axis=kv_seq_axis)
         dec = steps_mod.make_decode_step(cfg, opts, plan=pl)
         _mr_counts_zero()
         logits, cache = pre(params, {"tokens": toks[:, :MR_PROMPT]})
-        big = T.init_cache(cfg, MR_BATCH, MR_PROMPT + MR_DECODE,
-                           device="cuda")
-        if pl is not None:
-            big = S.shard_tree(big, S.cache_shardings(big, cfg, pl))
-        for e, c in cache.items():
-            for key, val in c.items():
-                smc.local(big[e][key])[:, :, :MR_PROMPT] = smc.local(val)
-        cache = big
+        if kv_seq_axis:
+            # a cache split over its sequence is laid out by its length:
+            # grown whole, as serve grows it, and split again
+            from repro_torch.launch.serve import _grow_cache
+            whole = _grow_cache(tree_map(lambda t: smc.gather_full(
+                t, mesh), cache), MR_PROMPT + MR_DECODE, MR_PROMPT)
+            cache = S.shard_tree(whole, S.cache_shardings(
+                whole, cfg, pl, kv_seq_axis=kv_seq_axis))
+            del whole
+        else:
+            big = T.init_cache(cfg, MR_BATCH, MR_PROMPT + MR_DECODE,
+                               device="cuda")
+            if pl is not None:
+                big = S.shard_tree(big, S.cache_shardings(big, cfg, pl))
+            for e, c in cache.items():
+                for key, val in c.items():
+                    smc.local(big[e][key])[:, :, :MR_PROMPT] = \
+                        smc.local(val)
+            cache = big
         outs = [smc.gather_full(logits, mesh)]
         for i in range(MR_DECODE - 1):
             logits, cache = dec(params, cache, MR_PROMPT + i,
@@ -2988,12 +3119,20 @@ def _mr_two(mesh, rank: int, d: str) -> dict:
     flips = []
     with _pinned_routing(flips, replay=torch.load(routing)):
         served, serve_launches = serve_steps(sp, plan)
-    serve_err = serve_steps_err = None
+    # the cache split over its sequence (``kv_seq_axis="model"``): each
+    # rank holds its slots of every kv head, and decode merges the ranks'
+    # partial attentions by their log-sum-exp
+    seq_flips = []
+    with _pinned_routing(seq_flips, replay=torch.load(routing)):
+        served_seq, seq_launches = serve_steps(sp, plan, "model")
+    serve_err = serve_steps_err = seq_err = None
     if rank == 0:
         diff = (served.float() - want_l.float()).abs()
         scale = want_l.float().abs().max()
         serve_err = float(diff.max() / scale)
         serve_steps_err = (diff.amax(dim=(1, 2)) / scale).tolist()
+        seq_err = float((served_seq.float() - want_l.float()).abs().max()
+                        / scale)
     # a sharded checkpoint, restored whole on rank 0
     whole = tree_map(lambda t: smc.gather_full(t, mesh), sp)
     mgr = CheckpointManager(os.path.join(d, "ckpt"))
@@ -3006,11 +3145,35 @@ def _mr_two(mesh, rank: int, d: str) -> dict:
             leaves_with_paths(back["params"]), leaves_with_paths(whole)))
     del whole
     timing = _mr_timed_step(cfg, plan, opts, tree_map(torch.clone, sp))
+    dry = _mr_dry_run(cfg, plan, shape, opts, "1x2")
+    # one profiled train step a rank (after every torch.profiler window of
+    # this process): each writes its own directory, rank 0 merges both
+    from repro_torch.launch.train import train
+    prof_dir = os.path.join(d, "prof")
+    _, _, paths = train(cfg, shape, n_steps=1, opts=opts, device="cuda",
+                        params=tree_map(torch.clone, sp), mesh=mesh,
+                        strategy="tp", profile_dir=prof_dir)
+    with open(paths["measurement"]) as f:
+        registered = json.load(f)["steps"]["train_step"]
+    dist.barrier()
+    merged = None
+    if rank == 0:
+        import glob
+        from repro_torch.core.aggregate import aggregate
+        db = aggregate(sorted(glob.glob(os.path.join(
+            prof_dir, "rank*", "profile_*.rpro"))), os.path.join(d, "db"))
+        merged = sorted({int(i["rank"]) for i in db.profile_ids.values()})
     return dict(sharded=trained, heads=[h, hkv], attn_err=attn_err,
                 attn_row=attn_row, serve_launches=serve_launches,
                 serve_err=serve_err, serve_steps_err=serve_steps_err,
-                routing_flips=sum(flips),
-                restored_bitwise=restored,
+                routing_flips=sum(flips), seq_err=seq_err,
+                seq_launches=seq_launches, seq_flips=sum(seq_flips),
+                seq_kernels=seq_kernels,
+                restored_bitwise=restored, dry=dry,
+                profiled=dict(dir=os.path.basename(os.path.dirname(
+                    paths["measurement"])), collectives=registered[
+                    "collectives"], custom_calls=registered["custom_calls"],
+                    seconds=registered["seconds"], merged_ranks=merged),
                 timing=timing, kernels=kernels,
                 host_staged=sorted(smc.GLOO_HOST_STAGED))
 
@@ -3072,7 +3235,7 @@ def _spawn_ranks(kind: str, world: int, d: str) -> list:
 
 
 def multi_rank_phase(card: str) -> dict:
-    """granite-moe-1b-a400m at full width and ``CUT_DEPTH``, 4 x 512,
+    """granite-moe-1b-a400m at full width and ``MR_LAYERS``, 4 x 512,
     through ``train(mesh=..., strategy="tp")`` and the sharded steps, in
     child processes: one rank over NCCL on a (1, 1) mesh against the
     unsharded ``train`` (losses and grad norms within ``MR_LOSS_TOL``,
@@ -3088,7 +3251,7 @@ def multi_rank_phase(card: str) -> dict:
     d = os.path.join(SCRATCH, "multi_rank")
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
-    cfg = _config(MULTI_RANK)
+    cfg = _mr_config()
     t0 = time.monotonic()
     one = _spawn_ranks("one", 1, d)[0]
     t_one = time.monotonic() - t0
@@ -3156,6 +3319,27 @@ def multi_rank_phase(card: str) -> dict:
     if two[0]["restored_bitwise"] is not True:
         raise AssertionError("multi_rank: the sharded checkpoint did not "
                              "restore bitwise on one rank")
+    dry = _mr_check_dry(one, two)
+    for r, res in enumerate(two):
+        want = dict(flash_attention=cfg.n_layers,
+                    flash_decode=cfg.n_layers * (MR_DECODE - 1),
+                    ssm_scan=0)
+        if res["seq_launches"] != want:
+            raise AssertionError(f"multi_rank rank {r}: seq-split serving "
+                                 f"launches {res['seq_launches']}, want "
+                                 f"{want}")
+        prof = res["profiled"]
+        if prof["dir"] != f"rank{r}" or prof["collectives"] < 1 or \
+                prof["custom_calls"] != LAUNCHES_PER_LAYER * cfg.n_layers:
+            raise AssertionError(f"multi_rank rank {r}: profiled train "
+                                 f"step {prof}")
+    if two[0]["seq_err"] is None or two[0]["seq_err"] > TOL["rtol"]:
+        raise AssertionError(f"multi_rank: seq-split serving logits off the "
+                             f"unsharded by {two[0]['seq_err']} of their "
+                             f"largest")
+    if two[0]["profiled"]["merged_ranks"] != [0, 1]:
+        raise AssertionError(f"multi_rank: the two ranks' profiles merged "
+                             f"into ranks {two[0]['profiled']}")
     print(f"multi_rank ({card}): one rank over {one['backend']}: losses "
           f"{s['losses']} (unsharded {u['losses']}), grad norms "
           f"{s['gnorms']} (unsharded {u['gnorms']}), off the unsharded "
@@ -3177,6 +3361,18 @@ def multi_rank_phase(card: str) -> dict:
               f"{res['attn_err']} row {res['attn_row']}, peak "
               f"{res['sharded']['peak_bytes']} bytes; step "
               f"{json.dumps(res['timing'])}", flush=True)
+    for r, res in enumerate(two):
+        print(f"multi_rank ({card}): rank {r} seq-split serve "
+              f"(kv_seq_axis=model: {MR_PROMPT + MR_DECODE} slots, "
+              f"{(MR_PROMPT + MR_DECODE) // 2} a rank, every kv head) "
+              f"launches {res['seq_launches']}, logits within "
+              f"{res['seq_err']} of the unsharded steps' largest (rank 0 "
+              f"compares), routings that would have flipped "
+              f"{res['seq_flips']}; decode kernel with lse "
+              f"{json.dumps(res['seq_kernels']['flash_decode'])}; profiled "
+              f"train step {json.dumps(res['profiled'])}", flush=True)
+    print(f"multi_rank ({card}): dry run against the card "
+          f"{json.dumps(dry)}", flush=True)
     print(f"multi_rank ({card}): sharded serving logits within "
           f"{two[0]['serve_err']:.3g} of the unsharded steps' largest (the "
           f"unsharded expert choices replayed; "
@@ -3185,6 +3381,45 @@ def multi_rank_phase(card: str) -> dict:
           f"sharded checkpoint restored bitwise on one rank; phase "
           f"{seconds:.1f} s (one rank {t_one:.1f} s)", flush=True)
     return dict(one=one, two=two, seconds=seconds)
+
+
+def _mr_check_dry(one: dict, two: list) -> dict:
+    """The dry run of the phase's granite step (``launch.dryrun.dry_run``
+    on the live mesh) against the step on the card: at (1, 1) its FLOPs
+    equal FlopCounterMode's over the step (``MR_FLOPS_TOL``), its peak
+    is within ``MR_PEAK_TOL`` of torch.cuda.max_memory_allocated and its
+    roofline time is at most the device's busy time; at (1, 2) each
+    rank's collectives, by kind, are the backend's collectives
+    (``gloo:all_reduce``, ...) torch.profiler finds in one step.  Returns
+    what was compared."""
+    d, t = one["dry"], one["timing"]
+    out = {"1x1": dict(
+        flops=d["flops"], flops_counted=t["flops"],
+        peak_bytes=d["peak_bytes"], peak_measured=t["peak_bytes"],
+        peak_off=(d["peak_bytes"] - t["peak_bytes"]) / t["peak_bytes"],
+        bound_ms=d["step_time_ms"], busy_ms=t["device_busy_ms"],
+        dominant=d["dominant"], nodes=d["graph_nodes"],
+        seconds=d["seconds"])}
+    if abs(d["flops"] - t["flops"]) > MR_FLOPS_TOL * t["flops"]:
+        raise AssertionError(f"multi_rank dry run: {d['flops']} FLOPs, the "
+                             f"step on the card {t['flops']}")
+    if abs(out["1x1"]["peak_off"]) > MR_PEAK_TOL:
+        raise AssertionError(f"multi_rank dry run: peak {d['peak_bytes']} "
+                             f"bytes, measured {t['peak_bytes']}")
+    if d["step_time_ms"] > t["device_busy_ms"]:
+        raise AssertionError(f"multi_rank dry run: roofline "
+                             f"{d['step_time_ms']} ms above the measured "
+                             f"busy {t['device_busy_ms']} ms")
+    for r, res in enumerate(two):
+        got, want = res["dry"]["collectives"], res["timing"][
+            "collectives_by_kind"]
+        out[f"1x2 rank {r}"] = dict(collectives=got, profiled=want,
+                                    seconds=res["dry"]["seconds"])
+        if got != want or not got:
+            raise AssertionError(f"multi_rank dry run rank {r}: "
+                                 f"collectives {got}, torch.profiler finds "
+                                 f"{want}")
+    return out
 
 
 def main() -> int:
@@ -3322,6 +3557,14 @@ def main() -> int:
                 name=kname, path=path, route="cuda",
                 source=SOURCES[kname][0], replaces=SOURCES[kname][1],
                 launches=launches[kname], max_abs_err=err, **t))
+    for r, res in enumerate(mr["two"]):
+        for kname, (t, err) in res["seq_kernels"].items():
+            kernels.append(dict(
+                name=kname, path=f"{MULTI_RANK}:serve:seq-split "
+                f"(kv_seq_axis=model, lse) mesh(1,2) over gloo, rank {r}",
+                route="cuda", source=SOURCES[kname][0],
+                replaces=SOURCES[kname][1],
+                launches=res["seq_launches"][kname], max_abs_err=err, **t))
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -184,6 +184,17 @@ SHAPES = {
 }
 
 
+def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """(runs?, reason).  long_500k requires sub-quadratic sequence mixing."""
+    if shape.name == "long_500k":
+        quad = [b for b in set(model.blocks) if b == ATTN]
+        if quad:
+            return False, ("SKIP: pure full-attention blocks are quadratic/"
+                           "O(S) KV at 512k; per DESIGN.md only sub-quadratic "
+                           "archs run long_500k")
+    return True, ""
+
+
 _REGISTRY: dict = {}
 
 

@@ -36,6 +36,9 @@ COPIES = (
     "core/pipeline/unify.py", "core/sparse.py", "core/merge.py",
     "core/retention.py", "core/viewer.py", "core/blame.py",
     "core/derived.py",
+    # the approximate calling-context-tree reconstruction (paper §6.3,
+    # Fig. 5): pure Python over any call graph
+    "core/callgraph.py",
     "traceview/__init__.py", "traceview/tracedb.py",
     "traceview/pyramid.py", "traceview/raster.py", "traceview/filter.py",
     "traceview/render.py", "traceview/stats.py",

@@ -19,8 +19,13 @@ aggregation) runs unchanged:
   ``::ssm_scan``) become ``custom-call`` ops whose ``op_name`` ends in
   the kernel's name (``KERNEL_NAMES``), so
   ``HloModule.bind_kernel_structure`` binds their recovered interiors
-  (``core.kstruct``) unchanged.  An aten op missing from the table maps
-  to ``copy`` and says ``unmapped`` in its ``attrs``.
+  (``core.kstruct``) unchanged.  The collectives of a sharded step
+  (``distributed.shardmap_compat``'s custom ops) become the HLO
+  collective each is (``all-reduce``, ``all-gather``,
+  ``reduce-scatter``, ``collective-permute``) with its group's size in
+  ``group_size``, so ``structure.collective_bytes`` prices them as it
+  prices the reference's partitioned module.  An aten op missing from
+  the table maps to ``copy`` and says ``unmapped`` in its ``attrs``.
 - **Scope chain and frames.**  The models are plain functions, so there
   is no ``nn_module_stack``; the scope chain is the Python call chain
   instead, the counterpart of the reference's ``jax.named_scope`` chain:
@@ -46,29 +51,37 @@ aggregation) runs unchanged:
   ``matmul``/``einsum`` into ``mm``/``bmm``), run on meta tensors of the
   shapes in the node's ``meta["val"]``; other ops have 0 FLOPs.  Bytes
   are the node's tensor inputs plus outputs; views and pseudo-ops move
-  none.  A ``custom-call`` has 0 FLOPs and takes its cost from the bound
-  kernel structure, as in the reference.
+  none (their ``out_bytes`` is 0, but for a value a collective takes:
+  that is the collective's operand, which ``collective_bytes`` reads
+  from its producer's ``out_bytes``, as every HLO op has its own).  A
+  ``custom-call`` has 0 FLOPs and takes its cost from the bound kernel
+  structure, as in the reference.
 - **Loops.**  The port unrolls the layer loop in Python, so the module
   has one computation, no ``while``, and ``comp_multipliers`` is 1
   everywhere.
 - **Train step.**  ``torch.export`` traces forward only, so a train step
-  (forward, backward, optimizer) is traced by ``trace_train_step``
-  (``make_fx`` on fake tensors) and mapped by the same code
-  (``module_from_graph``).
+  (forward, backward, optimizer) is recorded by ``trace_train_step``
+  (``record_step``: a dispatch mode over a run on meta tensors, the
+  graph ``make_fx`` would trace at a tenth of its cost a node) and
+  mapped by the same code (``module_from_graph``).
 """
 from __future__ import annotations
 
 import contextlib
+import operator
 import os
 import re
 import sys
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten, tree_map_only
 
 from repro_torch.core import scope
 from repro_torch.core.structure import (Computation, HloModule, HloOp,
                                         StackFrame)
+from repro_torch.distributed.shardmap_compat import COLLECTIVE_OPS
 
 # the frames that make the scope chain: the model code and the kernels'
 # wrappers (never the step closure, the tool or torch)
@@ -78,6 +91,7 @@ SCOPE_DIRS = (os.path.join("repro_torch", "models") + os.sep,
 # custom op -> the kernel's name, which its structure carries
 KERNEL_NAMES = {"repro_torch::flash_attention": "flash_attention",
                 "repro_torch::flash_decode": "decode_attention",
+                "repro_torch::flash_decode_lse": "decode_attention",
                 "repro_torch::ssm_scan": "ssm_scan"}
 
 _VIEWS = ("view", "_unsafe_view", "reshape", "_reshape_alias", "unsqueeze",
@@ -269,6 +283,10 @@ def _flops(target, node) -> float:
     return float(counter.get_total_flops())
 
 
+def _schema(node) -> str:
+    return getattr(getattr(node.target, "_schema", None), "name", "")
+
+
 def _chain(node, chains: Dict[torch.fx.Node, tuple]) -> tuple:
     """The node's model frames, or its nearest traced producer's among
     the producers in its own scope (an update's ops take no frames from
@@ -297,38 +315,105 @@ def _chain(node, chains: Dict[torch.fx.Node, tuple]) -> tuple:
     return frames
 
 
-def trace_train_step(fn, args: Sequence) -> torch.fx.GraphModule:
+def trace_train_step(fn, args: Sequence) -> "Recorded":
     """The aten graph of one whole train step ``fn(*args)`` (loss, its
-    backward through ``torch.autograd.grad``, the optimizer update), by
-    ``make_fx`` on fake tensors: nothing runs on the device and no kernel
-    launch is counted.  ``torch.export`` traces no backward, hence
-    ``make_fx``.  The kernels stay single nodes (their custom ops have no
-    decomposition), their recompute backward is traced as the aten ops it
-    runs, and the remat checkpoints' recompute is traced where the
-    backward runs it, so there is one kernel node per forward launch,
-    recompute included (``_eager_selective_checkpoint``).  Nodes carry
-    their model frames as in ``export_step``."""
-    from torch.fx.experimental.proxy_tensor import make_fx
-    with _recording_model_frames(), _eager_selective_checkpoint():
-        return make_fx(fn, tracing_mode="fake")(*args)
+    backward through ``torch.autograd.grad``, the optimizer update),
+    recorded (``record_step``) on meta copies of ``args``: nothing runs
+    on the device, the inputs are left as they are (a donated step's
+    in-place update is recorded as in-place ops on the copies) and no
+    kernel launch is counted.  ``torch.export`` traces no backward, hence
+    a recording.  The kernels stay single nodes (their custom ops have no
+    decomposition), their recompute backward is recorded as the aten ops
+    it runs, and the remat checkpoints' recompute where the backward runs
+    it, as eagerly, so there is one kernel node per forward launch,
+    recompute included.  Nodes carry their model frames as in
+    ``export_step``."""
+    return record_step(fn, tree_map_only(torch.Tensor, lambda t: (
+        torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                            device="meta")), tuple(args)))
 
 
-@contextlib.contextmanager
-def _eager_selective_checkpoint():
-    """While open, a selective checkpoint acts under a tracer as it does
-    eagerly: it keeps what its policy saves and recomputes the rest in the
-    backward, where the trace records the recompute.  Under a tracer torch
-    otherwise saves every op of the region and leaves the recompute to a
-    compiler's partitioner, so the graph would hold one kernel node per
-    layer where the card launches two.  torch decides that in
-    ``torch.utils.checkpoint._is_compiling``, which this replaces."""
-    import torch.utils.checkpoint as ckpt
-    real = ckpt._is_compiling
-    ckpt._is_compiling = lambda *args, **kwargs: False
-    try:
-        yield
-    finally:
-        ckpt._is_compiling = real
+class Recorded:
+    """A recorded step (``record_step``): its ``torch.fx.Graph`` as
+    ``graph``, the one attribute of a ``GraphModule`` that
+    ``module_from_graph`` reads (no module is built: its code would be
+    generated for every node)."""
+
+    def __init__(self, graph: torch.fx.Graph):
+        self.graph = graph
+
+
+class _Recorder(TorchDispatchMode):
+    """The dispatch mode of ``record_step``: every aten op (and custom op)
+    that runs becomes a ``call_function`` node of the graph, its
+    arguments the nodes of the tensors it takes, its value the op's
+    result (a meta tensor), its scope and model frames as the make_fx
+    trace gives them; an op with several tensor results gets a
+    ``getitem`` node for each, as ``make_fx`` makes them.  Every result
+    stays referenced by its node, so a tensor's ``id`` names one node."""
+
+    def __init__(self, graph: torch.fx.Graph):
+        super().__init__()
+        self.graph = graph
+        self.nodes: Dict[int, torch.fx.Node] = {}
+        self.in_scope: Dict[object, bool] = {}
+
+    def node_of(self, t: torch.Tensor) -> torch.fx.Node:
+        node = self.nodes.get(id(t))
+        if node is None:   # a tensor made outside the step: a constant
+            node = self.graph.create_node(
+                "get_attr", f"_tensor_constant{len(self.nodes)}")
+            node.meta["val"] = t
+            self.nodes[id(t)] = node
+        return node
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        fa, fk = tree_map_only(torch.Tensor, self.node_of, (args, kwargs))
+        node = self.graph.create_node("call_function", func, tuple(fa), fk)
+        node.meta["val"] = out
+        node.meta["scope"] = scope.active()
+        frames = _model_frames(sys._getframe(1), self.in_scope)
+        if frames:
+            node.meta["stack_trace"] = "\n".join(
+                f'  File "{f}", line {n}, in {fn}' for f, n, fn in frames)
+        if isinstance(out, torch.Tensor):
+            self.nodes[id(out)] = node
+        elif isinstance(out, (tuple, list)):
+            for i, t in enumerate(out):
+                if isinstance(t, torch.Tensor):
+                    item = self.graph.create_node(
+                        "call_function", operator.getitem, (node, i))
+                    item.meta["val"] = t
+                    item.meta["scope"] = node.meta["scope"]
+                    self.nodes[id(t)] = item
+        return out
+
+
+def record_step(fn, args: Sequence) -> Recorded:
+    """The aten graph of ``fn(*args)`` by running it on meta tensors
+    (``args`` hold them: shapes and dtypes, no storage) under a dispatch
+    mode that records each op as ``make_fx`` would trace it, at about a
+    tenth of ``make_fx``'s cost a node (no proxies, no fake-tensor
+    caches, no module code): the dry run's tracer of full-size steps.
+    The graph's placeholders are ``args``' tensors in order, its output
+    ``fn``'s; a step's remat recompute runs where the backward runs it,
+    as it does eagerly."""
+    graph = torch.fx.Graph()
+    rec = _Recorder(graph)
+    flat, _ = tree_flatten(list(args))
+    for i, t in enumerate(flat):
+        if isinstance(t, torch.Tensor):
+            node = graph.placeholder(f"arg{i}")
+            node.meta["val"] = t
+            rec.nodes[id(t)] = node
+    with scope.no_ranges(), rec:
+        out = fn(*args)
+    outs, _ = tree_flatten(out)
+    graph.output(tuple(rec.node_of(t) for t in outs
+                       if isinstance(t, torch.Tensor)))
+    return Recorded(graph)
 
 
 def module_from_export(name: str, exported: torch.export.ExportedProgram
@@ -363,10 +448,12 @@ def module_from_graph(name: str, gm: torch.fx.GraphModule,
             parent = fid
         return parent
 
+    sent = {a for node in gm.graph.nodes if _schema(node) in COLLECTIVE_OPS
+            for a in node.all_input_nodes}
     for node in gm.graph.nodes:
         outs = _tensors(node.meta.get("val"))
         out_bytes = sum(_nbytes(t) for t in outs)
-        leaf, attrs, flops = node.name, "", 0.0
+        leaf, attrs, flops, group_size = node.name, "", 0.0, 1
         chain: tuple = ()
         if node.op == "placeholder":
             opcode = "constant" if node.name in constants else "parameter"
@@ -377,10 +464,13 @@ def module_from_graph(name: str, gm: torch.fx.GraphModule,
         else:
             target = node.target
             chain = _chain(node, chains)
-            schema = getattr(getattr(target, "_schema", None), "name", "")
+            schema = _schema(node)
             if schema in KERNEL_NAMES:
                 opcode, leaf = "custom-call", KERNEL_NAMES[schema]
                 attrs = f'custom_call_target="{schema}"'
+            elif schema in COLLECTIVE_OPS:
+                opcode, leaf = COLLECTIVE_OPS[schema], schema.split("::")[1]
+                group_size = int(node.args[2])
             elif getattr(target, "__name__", "") == "getitem":
                 opcode, leaf = "get-tuple-element", "getitem"
             else:
@@ -394,7 +484,7 @@ def module_from_graph(name: str, gm: torch.fx.GraphModule,
                 if opcode == "dot":
                     flops = _flops(target, node)
         if opcode in _NO_TRAFFIC:
-            nbytes, out_bytes = 0.0, 0
+            nbytes, out_bytes = 0.0, out_bytes if node in sent else 0
         else:
             ins = [t for a in node.all_input_nodes
                    for t in _tensors(a.meta.get("val"))]
@@ -409,7 +499,8 @@ def module_from_graph(name: str, gm: torch.fx.GraphModule,
                    out_bytes=out_bytes,
                    operands=tuple(a.name for a in node.all_input_nodes),
                    op_name=op_name, frame_id=frame_id(chain), attrs=attrs,
-                   index=len(comp.ops), flops=flops, bytes=nbytes)
+                   index=len(comp.ops), flops=flops, bytes=nbytes,
+                   group_size=group_size)
         comp.ops.append(op)
         ops[op.name] = op
     return HloModule(name=name, computations={"main": comp}, entry="main",

@@ -32,6 +32,7 @@ indices when more than one thread dispatches).
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import socket
 import sys
@@ -138,6 +139,11 @@ class Profiler:
                                       tracing=tracing,
                                       n_tracing_threads=n_tracing_threads)
         self._threads: Dict[int, _ThreadState] = {}
+        # a thread's key into ``_threads`` and its ring: drawn once per
+        # thread and kept in a thread-local, never ``get_ident`` (which an
+        # ended thread passes on to the next one started)
+        self._local = threading.local()
+        self._keys = itertools.count(1)
         self._threads_lock = threading.Lock()
         self._next_index = 0
         self._bound_indices: set = set()
@@ -243,8 +249,15 @@ class Profiler:
         self.stop()
 
     # ------------------------------------------------------------------ #
+    def _tid(self) -> int:
+        """The calling thread's key (see ``_local``)."""
+        key = getattr(self._local, "key", None)
+        if key is None:
+            key = self._local.key = next(self._keys)
+        return key
+
     def _state(self) -> _ThreadState:
-        tid = threading.get_ident()
+        tid = self._tid()
         st = self._threads.get(tid)
         if st is None:
             with self._threads_lock:
@@ -274,7 +287,7 @@ class Profiler:
         index = int(index)
         if index < 0:
             raise ValueError("thread index must be >= 0")
-        tid = threading.get_ident()
+        tid = self._tid()
         with self._threads_lock:
             st = self._threads.get(tid)
             if st is not None and st.seq:
@@ -791,7 +804,7 @@ class _Dispatch:
         p = self._p
         te0 = p.clock()
         self._te0 = te0
-        st = p._threads.get(threading.get_ident())
+        st = p._threads.get(p._tid())
         if st is None:
             st = p._state()
         self._st = st

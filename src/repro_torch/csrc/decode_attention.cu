@@ -43,7 +43,13 @@
 //     a kv head with G > 16 q heads takes ceil(G / 16) tiles, each its
 //     own cluster of splits reading the same keys.  At G <= 16 there is
 //     one tile and the kernel does what it did before tiles (the same
-//     splits, the same sums in the same order).
+//     splits, the same sums in the same order);
+//   - an optional log-sum-exp.  Given an fp32 (B, H) buffer, the block
+//     that owns a q row's first output element writes the row's natural
+//     log-sum-exp after the cluster merge, so a cache split over its
+//     sequence across ranks can merge their partial outputs; a null
+//     buffer leaves the output what it was without it.  length 0 (a
+//     rank's slice with no valid key) gives output 0 and lse -inf.
 
 #include <cooperative_groups.h>
 
@@ -84,8 +90,8 @@ template <int D, int NST>
 __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
     const __nv_bfloat16* __restrict__ vc, __nv_bfloat16* __restrict__ out,
-    int H, int Hkv, int Smax, int length, int keys_per_split,
-    float scale_log2) {
+    float* __restrict__ lse, int H, int Hkv, int Smax, int length,
+    int keys_per_split, float scale_log2) {
   constexpr int LD = D + 8;  // padded rows: conflict-free ldmatrix
   constexpr int CH = D / 8;  // 16-byte chunks per row
   constexpr int STEP = kStep * LD;
@@ -310,13 +316,18 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
       a += cAcc[r * chunk + j] * w;
     }
     ob[i] = __float2bfloat16(a / fmaxf(l, 1e-30f));  // kstruct: store 2
+    // the row's natural log-sum-exp of its scaled scores, -inf when the
+    // range holds no key (its weight in a merge across ranks is then 0)
+    if (lse != nullptr && i % D == 0)
+      lse[(long)b * H + (long)hk * (H / Hkv) + G0 + gg] =
+          l > 0.f ? (m + log2f(l)) * 0.6931471805599453f : -INFINITY;
   }
 }
 
 template <int D, int NST>
 cudaError_t launch(const void* q, const void* kc, const void* vc, void* out,
-                   int B, int H, int Hkv, int Smax, int length, int n_splits,
-                   int keys_per_split, cudaStream_t stream) {
+                   void* lse, int B, int H, int Hkv, int Smax, int length,
+                   int n_splits, int keys_per_split, cudaStream_t stream) {
   auto* kernel = flash_decode_kernel<D, NST>;
   constexpr int smem = smem_bytes<D>(NST);
   // once per instantiation: shared memory above 48 KB
@@ -340,7 +351,8 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, void* out,
       &cfg, kernel, static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(kc),
       static_cast<const __nv_bfloat16*>(vc), static_cast<__nv_bfloat16*>(out),
-      H, Hkv, Smax, length, keys_per_split, scale_log2);
+      static_cast<float*>(lse), H, Hkv, Smax, length, keys_per_split,
+      scale_log2);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -348,23 +360,23 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, void* out,
 // the ring depth: every step of a warp in flight at once, up to 4 steps
 template <int D>
 cudaError_t launch_d(const void* q, const void* kc, const void* vc, void* out,
-                     int B, int H, int Hkv, int Smax, int length,
+                     void* lse, int B, int H, int Hkv, int Smax, int length,
                      int n_splits, int keys_per_split, cudaStream_t stream) {
   const int per_warp = (keys_per_split + kWarps - 1) / kWarps;
   const int steps = (per_warp + kStep - 1) / kStep;
   switch (steps <= 1 ? 1 : steps == 2 ? 2 : steps == 3 ? 3 : 4) {
     case 1:
-      return launch<D, 1>(q, kc, vc, out, B, H, Hkv, Smax, length, n_splits,
-                          keys_per_split, stream);
+      return launch<D, 1>(q, kc, vc, out, lse, B, H, Hkv, Smax, length,
+                          n_splits, keys_per_split, stream);
     case 2:
-      return launch<D, 2>(q, kc, vc, out, B, H, Hkv, Smax, length, n_splits,
-                          keys_per_split, stream);
+      return launch<D, 2>(q, kc, vc, out, lse, B, H, Hkv, Smax, length,
+                          n_splits, keys_per_split, stream);
     case 3:
-      return launch<D, 3>(q, kc, vc, out, B, H, Hkv, Smax, length, n_splits,
-                          keys_per_split, stream);
+      return launch<D, 3>(q, kc, vc, out, lse, B, H, Hkv, Smax, length,
+                          n_splits, keys_per_split, stream);
     default:
-      return launch<D, 4>(q, kc, vc, out, B, H, Hkv, Smax, length, n_splits,
-                          keys_per_split, stream);
+      return launch<D, 4>(q, kc, vc, out, lse, B, H, Hkv, Smax, length,
+                          n_splits, keys_per_split, stream);
   }
 }
 
@@ -374,12 +386,17 @@ cudaError_t launch_d(const void* q, const void* kc, const void* vc, void* out,
 // q (B,H,D), caches (B,Smax,Hkv,D), out (B,H,D): bf16, contiguous,
 // D = 64 or 128, any G = H/Hkv (ceil(G / 16) tiles of q rows a kv head).
 // Split s covers keys [s*keys_per_split, (s+1)*keys_per_split) clipped to
-// `length`; n_splits <= 8 is the cluster size.  Returns the launch's cudaError_t (0 on success).
+// `length` (0 <= length <= Smax: at 0 the output is 0); n_splits <= 8 is
+// the cluster size.  lse (B,H) fp32, or null: each row's natural
+// log-sum-exp of its scaled scores over the valid keys (-inf at length 0),
+// for a merge of partial attentions across ranks; with null the output is
+// what it was before lse existed.  Returns the launch's cudaError_t (0 on
+// success).
 extern "C" int flash_decode_fwd_bf16(const void* q, const void* kc,
                                      const void* vc, void* out, int B, int H,
                                      int Hkv, int Smax, int D, int length,
                                      int n_splits, int keys_per_split,
-                                     void* stream) {
+                                     void* lse, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Hkv < 1 || H % Hkv != 0 || n_splits < 1 ||
       n_splits > repro_torch::kMaxSplits ||
@@ -387,10 +404,10 @@ extern "C" int flash_decode_fwd_bf16(const void* q, const void* kc,
           65535)
     return (int)cudaErrorInvalidValue;
   if (D == 64)
-    return repro_torch::launch_d<64>(q, kc, vc, out, B, H, Hkv, Smax, length,
-                                     n_splits, keys_per_split, st);
+    return repro_torch::launch_d<64>(q, kc, vc, out, lse, B, H, Hkv, Smax,
+                                     length, n_splits, keys_per_split, st);
   if (D == 128)
-    return repro_torch::launch_d<128>(q, kc, vc, out, B, H, Hkv, Smax,
+    return repro_torch::launch_d<128>(q, kc, vc, out, lse, B, H, Hkv, Smax,
                                       length, n_splits, keys_per_split, st);
   return (int)cudaErrorInvalidValue;
 }

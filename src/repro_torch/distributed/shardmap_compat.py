@@ -21,6 +21,11 @@ the port of the JAX package's ``repro/distributed/shardmap_compat.py``.
   gradients, an all-gather's the reduce-scatter (sum) of them, a
   ppermute's the inverse permutation.  The whole sharded train step is
   one such region (``launch.steps``).
+- Each collective is one custom op (``repro_torch::all_reduce``,
+  ``::all_gather``, ``::reduce_scatter``, ``::permute``) that takes its
+  group's name and size, so a traced step (``make_fx``, the dry run's
+  fake process group) holds it as one node; ``COLLECTIVE_OPS`` names the
+  HLO collective of each.
 
 Every collective runs on the tensors as they are, but for one: gloo's
 send and receive on CUDA tensors, the kind named in ``GLOO_HOST_STAGED``,
@@ -185,6 +190,25 @@ def gather_spec(x: torch.Tensor, spec, keep: tuple = ()) -> tuple:
     return x, P(*after)
 
 
+def reshard(x: torch.Tensor, src, dst) -> torch.Tensor:
+    """``x`` (a rank's block under spec ``src``, inside a bound mesh
+    region) as its block under ``dst``: every dimension whose axes differ
+    all-gathered over ``src``'s axes first, then sliced to this rank's
+    part along ``dst``'s.  ``x`` itself where the specs agree."""
+    mesh = bound()
+    pairs = [(entry_axes(src[i]) if i < len(src) else (),
+              entry_axes(dst[i]) if i < len(dst) else ())
+             for i in range(x.dim())]
+    for i, (s, d) in enumerate(pairs):
+        if s and s != d:
+            x = all_gather(x, s, axis=i, tiled=True)
+    for i, (s, d) in enumerate(pairs):
+        if d and s != d:
+            step = x.shape[i] // mesh.axis_size(d)
+            x = x.narrow(i, mesh.axis_index(d) * step, step)
+    return x
+
+
 def gather_full(t, mesh=None) -> torch.Tensor:
     """The global tensor of a DTensor, on every rank (all-gathers over the
     axes of each sharded dimension)."""
@@ -217,22 +241,88 @@ def bound():
 # ---------------------------------------------------------------------------
 # collectives
 # ---------------------------------------------------------------------------
-def _all_reduce(x, group):
+# Each collective is a custom op of the port's own: eagerly it makes the
+# same ``torch.distributed`` call on the same tensors as a direct call
+# would, and a tracer (``make_fx``, ``torch.export``) records it as one
+# node that names its group and the group's size, which
+# ``core.export.module_from_graph`` maps to the HLO collective the
+# reference's partitioned module holds (``COLLECTIVE_OPS``).  The fake
+# implementations give the result's shape alone, so a trace on fake
+# tensors (the dry run's, over a fake process group) moves no data.
+def _group(name: str):
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return _resolve_process_group(name)
+
+
+@torch.library.custom_op("repro_torch::all_reduce", mutates_args=())
+def _all_reduce_op(x: torch.Tensor, group_name: str,
+                   group_size: int) -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=group)
+    dist.all_reduce(out, group=_group(group_name))
     return out
+
+
+@_all_reduce_op.register_fake
+def _(x, group_name, group_size):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+@torch.library.custom_op("repro_torch::all_gather", mutates_args=())
+def _all_gather_op(x: torch.Tensor, group_name: str,
+                   group_size: int) -> torch.Tensor:
+    out = x.new_empty((group_size * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(),
+                                group=_group(group_name))
+    return out
+
+
+@_all_gather_op.register_fake
+def _(x, group_name, group_size):
+    return x.new_empty((group_size * x.shape[0],) + tuple(x.shape[1:]))
+
+
+@torch.library.custom_op("repro_torch::reduce_scatter", mutates_args=())
+def _reduce_scatter_op(x: torch.Tensor, group_name: str,
+                       group_size: int) -> torch.Tensor:
+    out = x.new_empty((x.shape[0] // group_size,) + tuple(x.shape[1:]))
+    _reduce_scatter(out, x.contiguous(), group=_group(group_name))
+    return out
+
+
+@_reduce_scatter_op.register_fake
+def _(x, group_name, group_size):
+    return x.new_empty((x.shape[0] // group_size,) + tuple(x.shape[1:]))
+
+
+@torch.library.custom_op("repro_torch::permute", mutates_args=())
+def _permute_op(x: torch.Tensor, group_name: str, group_size: int,
+                send_to: int, recv_from: int) -> torch.Tensor:
+    return _exchange(x, _group(group_name), None if send_to < 0 else send_to,
+                     None if recv_from < 0 else recv_from)
+
+
+@_permute_op.register_fake
+def _(x, group_name, group_size, send_to, recv_from):
+    return torch.empty_like(x)
+
+
+# custom op -> the HLO opcode of the collective it is
+COLLECTIVE_OPS = {"repro_torch::all_reduce": "all-reduce",
+                  "repro_torch::all_gather": "all-gather",
+                  "repro_torch::reduce_scatter": "reduce-scatter",
+                  "repro_torch::permute": "collective-permute"}
+
+
+def _all_reduce(x, group):
+    return _all_reduce_op(x, group.group_name, dist.get_world_size(group))
 
 
 def _gather_dim0(x, group, n):
-    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
-    return out
+    return _all_gather_op(x, group.group_name, n)
 
 
 def _scatter_dim0(x, group, n):
-    out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
-    _reduce_scatter(out, x.contiguous(), group=group)
-    return out
+    return _reduce_scatter_op(x, group.group_name, n)
 
 
 class _Psum(torch.autograd.Function):
@@ -315,20 +405,25 @@ def _exchange(x: torch.Tensor, group, send_to: Optional[int],
     return out
 
 
+def _permute(x, group, me: int, perm) -> torch.Tensor:
+    """``x`` sent along ``perm`` from this rank (``me``) through the
+    permute op (-1: no peer)."""
+    dst = dict(perm).get(me, -1)
+    src = {d: s for s, d in perm}.get(me, -1)
+    return _permute_op(x, group.group_name, dist.get_world_size(group), dst,
+                       src)
+
+
 class _Ppermute(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, me, perm):
         ctx.group, ctx.me, ctx.perm = group, me, perm
-        dst = dict(perm).get(me)
-        src = {d: s for s, d in perm}.get(me)
-        return _exchange(x, group, dst, src)
+        return _permute(x, group, me, perm)
 
     @staticmethod
     def backward(ctx, g):
         inv = tuple((d, s) for s, d in ctx.perm)
-        dst = dict(inv).get(ctx.me)
-        src = {d: s for s, d in inv}.get(ctx.me)
-        return _exchange(g, ctx.group, dst, src), None, None, None
+        return _permute(g, ctx.group, ctx.me, inv), None, None, None
 
 
 def ppermute(x: torch.Tensor, axis: str, perm: Sequence) -> torch.Tensor:

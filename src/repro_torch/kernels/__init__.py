@@ -22,7 +22,6 @@ def kernel_structures(cfg, batch: int, prompt_len: int, max_len: int, *,
     chunks of ``ssm_chunk`` (``serve``'s default).  An xLSTM stack runs
     none of them."""
     from repro_torch.configs.base import ATTN, HYBRID, SWA
-    from repro_torch.core.kstruct import KernelStructure
     from repro_torch.kernels import decode_attention, flash_attention, \
         ssm_scan
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -44,10 +43,68 @@ def kernel_structures(cfg, batch: int, prompt_len: int, max_len: int, *,
                                   st=cfg.ssm_state,
                                   chunk=min(ssm_chunk, prompt_len))
         works["ssm_scan"] = ssm_scan.work
-    out = []
-    for name, sh in shapes.items():
-        flops, nbytes = works[name](**sh)
-        out.append(KernelStructure.from_cuda_source(
-            os.path.join(CSRC, f"{name}.cu"), name,
-            dict(sh, flops=flops, bytes=nbytes)))
-    return tuple(out)
+    return tuple(_structure(name, sh, works[name])
+                 for name, sh in shapes.items())
+
+
+def _structure(name: str, sh: dict, work):
+    from repro_torch.core.kstruct import KernelStructure
+    flops, nbytes = work(**sh)
+    return KernelStructure.from_cuda_source(
+        os.path.join(CSRC, f"{name}.cu"), name,
+        dict(sh, flops=flops, bytes=nbytes))
+
+
+def call_shapes(schema: str, args) -> tuple:
+    """(kernel name, its ``work`` shapes) of one call of a kernel's custom
+    op (``schema``: ``repro_torch::flash_attention``, ``::flash_decode``,
+    ``::flash_decode_lse`` or ``::ssm_scan``) whose arguments are
+    ``args``, each tensor given by its shape; None for another op."""
+    name = schema.split("::")[-1]
+    if name == "flash_attention":
+        (B, S, H, D), Hkv = args[0], args[1][2]
+        return "flash_attention", dict(B=B, S=S, H=H, Hkv=Hkv, D=D,
+                                       window=int(args[4]))
+    if name in ("flash_decode", "flash_decode_lse"):
+        (B, H, D), Hkv = args[0], args[1][2]
+        return "decode_attention", dict(B=B, H=H, Hkv=Hkv, D=D,
+                                        length=int(args[3]))
+    if name == "ssm_scan":
+        B, S, nh, hd = args[0]
+        return "ssm_scan", dict(B=B, S=S, nh=nh, hd=hd, st=args[2][-1],
+                                chunk=int(args[5]))
+    return None
+
+
+def work_of(kernel: str):
+    from repro_torch.kernels import decode_attention, flash_attention, \
+        ssm_scan
+    return {"flash_attention": flash_attention.work,
+            "decode_attention": decode_attention.work,
+            "ssm_scan": ssm_scan.work}[kernel]
+
+
+def graph_structures(gm) -> tuple:
+    """The interiors of the kernels a traced step (a recorded or exported
+    ``torch.fx`` graph) launches, each at the shapes of its custom-call
+    nodes: on a mesh, a rank's heads and its slice of a cache.
+    Every call of a kernel in one step has one shape (each layer's); a
+    kernel called at two shapes raises, as its structure binds to every
+    custom-call of its name."""
+    import torch
+    shapes: dict = {}
+    for node in gm.graph.nodes:
+        schema = getattr(getattr(node.target, "_schema", None), "name", "")
+        if not schema.startswith("repro_torch::"):
+            continue
+        got = call_shapes(schema, [a.meta["val"].shape if isinstance(
+            a, torch.fx.Node) and a.meta.get("val") is not None else a
+            for a in node.args])
+        if got is None:
+            continue
+        name, sh = got
+        if shapes.setdefault(name, sh) != sh:
+            raise ValueError(f"graph_structures: {name} at {sh} and "
+                             f"{shapes[name]} in one step")
+    return tuple(_structure(name, sh, work_of(name))
+                 for name, sh in shapes.items())

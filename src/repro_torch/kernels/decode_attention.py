@@ -47,12 +47,21 @@ MIN_KEYS = 64          # keys per split at least: one 16-key step a warp
 
 
 def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
-                       v_cache: torch.Tensor, length: int) -> torch.Tensor:
-    """q: (B,H,D); caches: (B,Smax,Hkv,D); length: valid cache length.
-    Returns (B,H,D) in q.dtype."""
+                       v_cache: torch.Tensor, length: int,
+                       with_lse: bool = False):
+    """q: (B,H,D); caches: (B,Smax,Hkv,D); length: valid cache length
+    (0 <= length <= Smax).  Returns (B,H,D) in q.dtype; ``with_lse`` also
+    each row's natural log-sum-exp of its scaled scores over the valid
+    keys, (B,H) fp32.  At length 0 (a rank's slice of a cache split over
+    its sequence that holds no valid key yet) the output is 0 and the lse
+    -inf, so the slice weighs nothing in ``merge_partials``."""
     B, H, D = q.shape
     Hkv = k_cache.shape[2]
     G = H // Hkv
+    if length == 0:
+        out = q.new_zeros((B, H, D))
+        lse = torch.full((B, H), float("-inf"), device=q.device)
+        return (out, lse) if with_lse else out
     qr = q.reshape(B, Hkv, G, D)
     s = torch.einsum("bhgd,bshd->bhgs", qr.float(), k_cache.float()) \
         * (D ** -0.5)
@@ -61,7 +70,10 @@ def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
-    return out.reshape(B, H, D).to(q.dtype)
+    out = out.reshape(B, H, D).to(q.dtype)
+    if not with_lse:
+        return out
+    return out, torch.logsumexp(s, dim=-1).reshape(B, H)
 
 
 def q_tiles(H: int, Hkv: int) -> int:
@@ -110,17 +122,20 @@ def _lib() -> ctypes.CDLL:
     fn = lib.flash_decode_fwd_bf16
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
-            + [ctypes.c_void_p]
+            + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
     return lib
 
 
 def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
-                      v_cache: torch.Tensor, length: int) -> torch.Tensor:
+                      v_cache: torch.Tensor, length: int,
+                      with_lse: bool = False):
     """Launch the kernel (one launch) on the current stream.  Takes a
     bf16 CUDA q (B,H,D) and contiguous bf16 CUDA caches (B,Smax,Hkv,D),
-    D in ``HEAD_DIMS``, any H/Hkv and 1 <= length <= Smax; raises on
-    anything else."""
+    D in ``HEAD_DIMS``, any H/Hkv and 0 <= length <= Smax; raises on
+    anything else.  ``with_lse``: also the (B,H) fp32 log-sum-exp the
+    kernel writes after its cluster merge (without it the kernel is given
+    a null pointer and writes the output alone)."""
     B, H, D = q.shape
     Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
@@ -135,19 +150,22 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("flash_decode kernel: caches must be contiguous")
     length = int(length)
-    if not 1 <= length <= Smax:
+    if not 0 <= length <= Smax:
         raise ValueError(f"flash_decode kernel: length {length} outside "
-                         f"[1, {Smax}]")
+                         f"[0, {Smax}]")
     q = q.contiguous()
     n_splits, keys_per_split = plan_splits(B, Hkv, length,
                                            _sm_count(q.device),
-                                           q_tiles(H, Hkv))
+                                           q_tiles(H, Hkv)) \
+        if length else (1, 0)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _lib().flash_decode_fwd_bf16(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             out.data_ptr(), B, H, Hkv, Smax, D, length, n_splits,
-            keys_per_split, stream)
+            keys_per_split, lse.data_ptr() if with_lse else None, stream)
     build.check(err, "flash_decode_fwd_bf16")
-    return out
+    return (out, lse) if with_lse else out

@@ -113,6 +113,29 @@ def _(q, k_cache, v_cache, length):
     return torch.empty_like(q)
 
 
+# the decode kernel with its log-sum-exp output (a cache split over its
+# sequence merges the ranks' partial attentions by it): one launch of the
+# same kernel, counted with ``flash_decode``'s
+@torch.library.custom_op("repro_torch::flash_decode_lse", mutates_args=(),
+                         device_types="cpu")
+def _flash_decode_lse_op(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                         length: int) -> tuple[Tensor, Tensor]:
+    return _fd.flash_decode_plain(q, k_cache, v_cache, length, with_lse=True)
+
+
+@_flash_decode_lse_op.register_kernel("cuda")
+def _(q, k_cache, v_cache, length):
+    out = _fd.flash_decode_cuda(q, k_cache, v_cache, length, with_lse=True)
+    flash_decode.launches += 1
+    return out
+
+
+@_flash_decode_lse_op.register_fake
+def _(q, k_cache, v_cache, length):
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
 @torch.library.custom_op("repro_torch::ssm_scan", mutates_args=(),
                          device_types="cpu")
 def _ssm_scan_op(xv: Tensor, logdecay: Tensor, Bmat: Tensor, Cmat: Tensor,
@@ -173,17 +196,22 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     return _flash_attention_op(q, k, v, bool(causal), int(window))
 
 
-def flash_decode(q, k_cache, v_cache, length: int):
+def flash_decode(q, k_cache, v_cache, length: int, with_lse: bool = False):
     """One-token decode attention against a KV cache (B,H,D) x
     (B,Smax,Hkv,D) -> (B,H,D).  ``length`` is a Python int (no device
-    sync).  Inference-only: on CUDA, an input that requires grad
+    sync), 0 <= length <= Smax.  ``with_lse``: (out, the rows' (B,H) fp32
+    log-sum-exp), for a merge across the ranks that hold parts of the
+    sequence.  Inference-only: on CUDA, an input that requires grad
     raises."""
     if _needs_grad(q, k_cache, v_cache):
         if q.is_cuda:
             raise NotImplementedError(
                 "flash_decode: the CUDA kernel is inference-only (the JAX "
                 "package's decode kernel has no VJP either)")
-        return _fd.flash_decode_plain(q, k_cache, v_cache, int(length))
+        return _fd.flash_decode_plain(q, k_cache, v_cache, int(length),
+                                      with_lse=with_lse)
+    if with_lse:
+        return _flash_decode_lse_op(q, k_cache, v_cache, int(length))
     return _flash_decode_op(q, k_cache, v_cache, int(length))
 
 
@@ -200,3 +228,27 @@ def ssm_scan(xv, logdecay, Bmat, Cmat, h0=None, chunk: int = 256):
 flash_attention.launches = 0
 flash_decode.launches = 0
 ssm_scan.launches = 0
+
+
+# FLOPs of each kernel call as ``torch.utils.flop_counter`` counts them:
+# the work the function needs (each module's ``work``), so a
+# ``FlopCounterMode`` over a step counts the kernels beside the products
+def _kernel_flops(schema: str):
+    from repro_torch.kernels import call_shapes, work_of
+
+    def formula(*args, out_shape=None, **kwargs):
+        # the counter hands each tensor argument over as its shape
+        name, sh = call_shapes(schema, args)
+        return int(work_of(name)(**sh)[0])
+    return formula
+
+
+def _register_flop_formulas():
+    from torch.utils.flop_counter import register_flop_formula
+    for name in ("flash_attention", "flash_decode", "flash_decode_lse",
+                 "ssm_scan"):
+        register_flop_formula(getattr(torch.ops.repro_torch, name))(
+            _kernel_flops(f"repro_torch::{name}"))
+
+
+_register_flop_formulas()

@@ -70,11 +70,22 @@ def _compress_global(grads, specs, mesh):
         return tree_map(one, grads, specs)
 
 
-def batch_rows(batch: dict, plan, n: int = 1, i: int = 0) -> dict:
+def rows_entry(plan, rows: int):
+    """The spec entry of a batch dimension of ``rows`` rows: the plan's
+    batch axes, or None (every rank holds the whole batch) where they do
+    not divide it, as ``sharding.batch_shardings`` and
+    ``cache_shardings`` replicate such a batch."""
+    axes = plan.batch_axes()
+    return axes if rows % plan.mesh.axis_size(axes) == 0 else None
+
+
+def batch_rows(batch: dict, plan, n: int = 1, i: int = 0, *,
+               strict: bool = True) -> dict:
     """This rank's rows of microbatch ``i`` of ``n`` of a global batch (a
     DTensor is gathered first): the microbatch's rows split over the
     plan's batch axes, as the reference's sharding constraint on the
-    split lays them out.  A batch the axes do not divide raises."""
+    split lays them out.  A batch the axes do not divide raises, or, not
+    ``strict`` (serving), stays whole on every rank (``rows_entry``)."""
     mesh = plan.mesh
     axes = plan.batch_axes()
     k = mesh.axis_size(axes)
@@ -83,6 +94,9 @@ def batch_rows(batch: dict, plan, n: int = 1, i: int = 0) -> dict:
         v = smc.gather_full(v, mesh)
         mb = v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))[i]
         if mb.shape[0] % k:
+            if not strict:
+                out[name] = mb
+                continue
             raise ValueError(f"batch_rows: {mb.shape[0]} rows of {name!r} "
                              f"over {axes} ({k} ranks)")
         b = mb.shape[0] // k
@@ -91,23 +105,23 @@ def batch_rows(batch: dict, plan, n: int = 1, i: int = 0) -> dict:
     return out
 
 
-def _sharded_train_step(cfg, plan, opts, opt_cfg, grad_compression,
-                        n_microbatches, donate):
+def local_train_step(cfg, plan, opts, opt_cfg, specs, *,
+                     grad_compression: bool = False,
+                     n_microbatches: int = 1):
+    """The sharded train step on one rank's blocks: ``step(lp, lo, mbs)
+    -> (lp, lo, metrics)``, ``lp``/``lo`` the local blocks of the params
+    and AdamW state (``specs``: the params' storage specs), updated in
+    place, ``mbs`` this rank's rows of each microbatch (``batch_rows``).
+    The body of ``make_train_step(..., plan=)``; a trace of it
+    (``core.export.record_step``) holds the step's collectives."""
     mesh = plan.mesh
+    ctx = T.MeshCtx(plan, specs)
+    n = n_microbatches
 
-    def train_step(params, opt_state, batch):
-        specs = smc.tree_specs(params)
-        ctx = T.MeshCtx(plan, specs)
-        if not donate:
-            params = tree_map(torch.clone, params)
-            opt_state = tree_map(torch.clone, opt_state)
-        lp = tree_map(smc.local, params)
-        lo = tree_map(smc.local, opt_state)
-        n = n_microbatches
+    def step(lp, lo, mbs):
         with smc.bind(mesh):
             gsum = loss_sum = aux = None
-            for i in range(n):
-                mb = batch_rows(batch, plan, n, i)
+            for mb in mbs:
                 with named_scope("fwd_bwd" if n == 1 else "fwd_bwd_micro"):
                     _, metrics, g = _value_and_grad(cfg, opts, lp, mb, ctx)
                 if n > 1:
@@ -128,8 +142,37 @@ def _sharded_train_step(cfg, plan, opts, opt_cfg, grad_compression,
                     grads = _compress_global(grads, specs, mesh)
             with named_scope("optimizer"), torch.no_grad():
                 om = adamw.update_(opt_cfg, grads, lo, lp, specs)
-        return params, opt_state, {"loss": loss_sum / n, **metrics, **om}
+        return lp, lo, {"loss": loss_sum / n, **metrics, **om}
 
+    return step
+
+
+def _sharded_train_step(cfg, plan, opts, opt_cfg, grad_compression,
+                        n_microbatches, donate):
+    mesh = plan.mesh
+    n = n_microbatches
+
+    def local_args(params, opt_state, batch) -> tuple:
+        """(``local_train_step``, its arguments: this rank's blocks of
+        ``params`` and ``opt_state`` and its microbatch rows)."""
+        fn = local_train_step(cfg, plan, opts, opt_cfg,
+                              smc.tree_specs(params),
+                              grad_compression=grad_compression,
+                              n_microbatches=n)
+        with smc.bind(mesh):
+            mbs = [batch_rows(batch, plan, n, i) for i in range(n)]
+        return fn, (tree_map(smc.local, params),
+                    tree_map(smc.local, opt_state), mbs)
+
+    def train_step(params, opt_state, batch):
+        if not donate:
+            params = tree_map(torch.clone, params)
+            opt_state = tree_map(torch.clone, opt_state)
+        fn, args = local_args(params, opt_state, batch)
+        _, _, metrics = fn(*args)
+        return params, opt_state, metrics
+
+    train_step.local_args = local_args
     return train_step
 
 
@@ -211,36 +254,86 @@ def make_train_step(cfg: ModelConfig, opts: T.ModelOptions,
     return train_step if n_microbatches <= 1 else train_step_micro
 
 
-def _wrap_cache(cache, cfg, plan, batch: int, kv_seq_axis):
-    """A prefill's local cache blocks as DTensors of the plan's
-    ``cache_shardings``.  Each block must be what that layout gives this
-    rank: the sharded attention keeps a cache's kv heads split as its kv
-    weights are and its sequence whole, so a layout that splits the
-    sequence (``kv_seq_axis``, or kv heads the model axis does not
-    divide) raises."""
-    from repro_torch.distributed.sharding import cache_shardings
-    smax = next((e["k"].shape[2] for e in cache.values() if "k" in e), 1)
-    meta = T.init_cache(cfg, batch, smax, device="meta")
-    shardings = cache_shardings(meta, cfg, plan, kv_seq_axis=kv_seq_axis)
+def compute_cache_specs(cache_specs, specs, plan, rows: int):
+    """The layout a sharded step computes each cache leaf in, beside its
+    storage layout (``cache_specs``, ``sharding.cache_shardings``): the
+    batch over the plan's batch axes (``rows_entry``); k/v with their kv
+    heads over the tensor-parallel axis where ``wk`` is split over it
+    (``specs``: the params' storage specs), every other dimension whole;
+    the other states (mamba, xLSTM) whole, as their weights are gathered
+    whole.  ``shardmap_compat.reshard`` moves a leaf between the two."""
+    dp = rows_entry(plan, rows)
+    tp = plan.model_axis if plan.strategy == "tp" else None
+    out = {}
+    for e, leaves_ in cache_specs.items():
+        wk = specs["layers"].get(e, {}).get("attn", {}).get("wk", ())
+        heads = tp if tp is not None and tp in smc.spec_axes(wk) else None
+        out[e] = {k: smc.P(None, dp, None, heads, None) if k in ("k", "v")
+                  else smc.P(None, dp) for k in leaves_}
+    return out
 
-    def one(t, s, m):
-        want = tuple(x.stop - x.start for x in smc.local_slices(
-            m.shape, s.spec, plan.mesh))
-        if tuple(t.shape) != want:
-            raise NotImplementedError(
-                f"prefill on a mesh: a cache leaf is {tuple(t.shape)} "
-                f"here, {s.spec} wants {want} (a cache split over its "
-                f"sequence is not ported)")
-        return smc.wrap(t, s.spec, plan.mesh)
-    return tree_map(one, cache, shardings, meta)
+
+def _reshard_tree(tree, src, dst):
+    return {e: {k: smc.reshard(v, src[e][k], dst[e][k])
+                for k, v in c.items()} for e, c in tree.items()}
+
+
+def local_prefill_step(cfg, plan, opts, specs, cache_specs, rows: int):
+    """The sharded prefill on one rank's blocks: ``step(lp, mb) ->
+    (logits of its rows, its cache blocks)``, the cache moved from the
+    layout it is computed in to ``cache_specs``
+    (``compute_cache_specs``): a cache split over its sequence keeps this
+    rank's slots of every kv head.  ``rows``: the global batch's."""
+    mesh = plan.mesh
+    ctx = T.MeshCtx(plan, specs)
+    compute = compute_cache_specs(cache_specs, specs, plan, rows)
+
+    @torch.no_grad()
+    def step(lp, mb):
+        with smc.bind(mesh):
+            logits, cache = T.prefill(lp, cfg, mb.get("tokens"),
+                                      mb.get("embeds"), opts=opts,
+                                      mesh_args=ctx)
+            return logits, _reshard_tree(cache, compute, cache_specs)
+    return step
+
+
+def local_decode_step(cfg, plan, opts, specs, cache_specs, rows: int):
+    """The sharded decode on one rank's blocks: ``step(lp, lc, pos,
+    token=None, embed=None) -> logits of its rows``, ``lc`` (its cache
+    blocks, laid out by ``cache_specs``) updated in place.  The k/v are
+    attended where they lie (a split sequence through
+    ``attention.split_decode``); every other state is moved to the layout
+    it is computed in and its block written back."""
+    mesh = plan.mesh
+    ctx = T.MeshCtx(plan, specs, cache_specs)
+    compute = compute_cache_specs(cache_specs, specs, plan, rows)
+
+    @torch.no_grad()
+    def step(lp, lc, pos, token=None, embed=None):
+        with smc.bind(mesh):
+            work = {e: {k: v if k in ("k", "v") else smc.reshard(
+                v, cache_specs[e][k], compute[e][k]) for k, v in c.items()}
+                for e, c in lc.items()}
+            logits, _ = T.decode_step(lp, cfg, work, token=token,
+                                      embed=embed, pos=pos, opts=opts,
+                                      mesh_args=ctx)
+            for e, c in work.items():
+                for k, v in c.items():
+                    if v is not lc[e][k]:
+                        lc[e][k].copy_(smc.reshard(v, compute[e][k],
+                                                   cache_specs[e][k]))
+        return logits
+    return step
 
 
 def make_prefill_step(cfg: ModelConfig, opts: T.ModelOptions, *,
                       plan=None, kv_seq_axis: Optional[str] = None):
     """``prefill_step(params, batch) -> (last logits (B, V) fp32, cache)``.
     With ``plan``: params DTensors, the batch global (or DTensors); the
-    logits come back split over the batch axes and the cache as DTensors
-    of ``cache_shardings`` (``kv_seq_axis`` as there)."""
+    logits come back split over the batch axes (``rows_entry``) and the
+    cache as DTensors of ``cache_shardings`` (``kv_seq_axis`` as there:
+    a cache split over its sequence holds each rank's slots)."""
     if plan is None or plan.mesh is None:
         @torch.no_grad()
         def prefill_step(params, batch):
@@ -248,19 +341,23 @@ def make_prefill_step(cfg: ModelConfig, opts: T.ModelOptions, *,
                              batch.get("embeds"), opts=opts)
         return prefill_step
     mesh = plan.mesh
+    from repro_torch.distributed.sharding import cache_shardings
 
-    @torch.no_grad()
     def sharded_prefill_step(params, batch):
-        ctx = T.MeshCtx(plan, smc.tree_specs(params))
-        lp = tree_map(smc.local, params)
-        with smc.bind(mesh):
-            mb = batch_rows(batch, plan)
-            logits, cache = T.prefill(lp, cfg, mb.get("tokens"),
-                                      mb.get("embeds"), opts=opts,
-                                      mesh_args=ctx)
         rows = next(iter(batch.values())).shape[0]
-        return (smc.wrap(logits, smc.P(plan.batch_axes(), None), mesh),
-                _wrap_cache(cache, cfg, plan, rows, kv_seq_axis))
+        seq = sum(v.shape[1] for k, v in batch.items()
+                  if k in ("tokens", "embeds"))
+        meta = T.init_cache(cfg, rows, seq, device="meta")
+        cache_specs = tree_map(lambda s: s.spec, cache_shardings(
+            meta, cfg, plan, kv_seq_axis=kv_seq_axis))
+        step = local_prefill_step(cfg, plan, opts, smc.tree_specs(params),
+                                  cache_specs, rows)
+        with smc.bind(mesh):
+            mb = batch_rows(batch, plan, strict=False)
+        logits, cache = step(tree_map(smc.local, params), mb)
+        return (smc.wrap(logits, smc.P(rows_entry(plan, rows), None), mesh),
+                tree_map(lambda t, s: smc.wrap(t, s, mesh), cache,
+                         cache_specs))
     return sharded_prefill_step
 
 
@@ -268,8 +365,9 @@ def make_decode_step(cfg: ModelConfig, opts: T.ModelOptions, *, plan=None):
     """``decode_step(params, cache, pos, token=None, embed=None) ->
     (logits (B, V) fp32, cache)``, the cache updated in place.  With
     ``plan``: params and cache DTensors (the cache's local blocks are
-    written), token/embed global (or DTensors); the logits come back
-    split over the batch axes."""
+    written; a cache split over its sequence is attended slot by slot
+    and merged across the ranks), token/embed global (or DTensors); the
+    logits come back split over the batch axes."""
     if plan is None or plan.mesh is None:
         @torch.no_grad()
         def decode_step(params, cache, pos, token=None, embed=None):
@@ -278,18 +376,17 @@ def make_decode_step(cfg: ModelConfig, opts: T.ModelOptions, *, plan=None):
         return decode_step
     mesh = plan.mesh
 
-    @torch.no_grad()
     def sharded_decode_step(params, cache, pos, token=None, embed=None):
-        ctx = T.MeshCtx(plan, smc.tree_specs(params))
-        lp = tree_map(smc.local, params)
-        lc = tree_map(smc.local, cache)
         inputs = {k: v for k, v in (("token", token), ("embed", embed))
                   if v is not None}
+        rows = next(iter(inputs.values())).shape[0]
+        step = local_decode_step(cfg, plan, opts, smc.tree_specs(params),
+                                 smc.tree_specs(cache), rows)
         with smc.bind(mesh):
-            mb = batch_rows(inputs, plan)
-            logits, _ = T.decode_step(lp, cfg, lc, token=mb.get("token"),
-                                      embed=mb.get("embed"), pos=pos,
-                                      opts=opts, mesh_args=ctx)
-        return (smc.wrap(logits, smc.P(plan.batch_axes(), None), mesh),
+            mb = batch_rows(inputs, plan, strict=False)
+        logits = step(tree_map(smc.local, params),
+                      tree_map(smc.local, cache), pos, mb.get("token"),
+                      mb.get("embed"))
+        return (smc.wrap(logits, smc.P(rows_entry(plan, rows), None), mesh),
                 cache)
     return sharded_decode_step

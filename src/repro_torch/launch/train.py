@@ -21,13 +21,13 @@ attention and the mamba mixer run the hand-written Hopper kernels
 remat included; their backward is plain torch, as the reference's.
 
 With a profile directory the paper's measurement stack runs around every
-step: before the profiler starts, the whole train step is traced
-(``core.export.trace_train_step``), the kernels' interiors recovered from
-their CUDA source at the step's shapes are bound to its ``custom-call``
-ops and the module is registered; every step is then dispatched under
-``Profiler.dispatch("kernel", "train_step")`` and ends in a synchronize
-inside the dispatch, so the profile's times are device times, and PC
-samples descend into the kernels.  The step's phases carry the JAX
+step: before the profiler starts, the whole train step is recorded
+(``core.export.trace_train_step`` on meta tensors), the kernels' interiors
+recovered from their CUDA source at the step's shapes are bound to its
+``custom-call`` ops and the module is registered; every step is then
+dispatched under ``Profiler.dispatch("kernel", "train_step")`` and ends
+in a synchronize inside the dispatch, so the profile's times are device
+times, and PC samples descend into the kernels.  The step's phases carry the JAX
 package's named scopes (``steps.make_train_step``), so the database's
 top-down view under the ``train_step`` placeholder splits into
 ``fwd_bwd`` (``fwd_bwd_micro``), ``grad_compression`` and
@@ -44,8 +44,12 @@ builds the seeded parameters whole and keeps its blocks, or takes a
 sharded tree (``convert.params_from_jax(..., plan=)``), and the step is
 ``steps.make_train_step(..., plan=)``.  Every rank draws the same global
 batches; the step keeps its rows.  Checkpoints are written by block and
-restored onto the mesh's layout.  The profiler's traced step is not
-taken on a mesh (``profile_dir`` raises there).
+restored onto the mesh's layout.  With a profile directory each rank
+measures itself into ``<profile_dir>/rank<R>`` under its own rank
+(profiles ``profile_r<R>_t<i>.rpro``), the traced step being its local
+body (``steps.local_train_step`` on its blocks and rows, the
+collectives as nodes), so ``aggregate`` over every rank's profiles
+merges the ranks as it merges processes.
 """
 from __future__ import annotations
 
@@ -109,9 +113,6 @@ def train(cfg: ModelConfig, shape: ShapeConfig, *, n_steps: int = 20,
     plan = None
     if mesh is not None:
         plan = shard_mod.make_plan(mesh, strategy=strategy)
-        if profile_dir:
-            raise NotImplementedError("train: the profiled (traced) step "
-                                      "is not taken on a mesh")
 
     # ---- init or resume --------------------------------------------------
     if params is None:
@@ -144,7 +145,11 @@ def train(cfg: ModelConfig, shape: ShapeConfig, *, n_steps: int = 20,
     structure = {}
     if profile_dir:
         from repro_torch.core.profiler import Profiler
-        prof = Profiler(profile_dir, tracing=True, rng_seed=seed)
+        rank = 0
+        if mesh is not None:
+            rank = mesh.rank
+            profile_dir = os.path.join(profile_dir, f"rank{rank}")
+        prof = Profiler(profile_dir, tracing=True, rng_seed=seed, rank=rank)
         mid, structure["train_step"] = register_train_step(
             prof, cfg, opts, step_fn, params, opt_state,
             to_device(ds.batch_at(start_step), dev))
@@ -194,23 +199,29 @@ def train(cfg: ModelConfig, shape: ShapeConfig, *, n_steps: int = 20,
 
 def register_train_step(prof, cfg: ModelConfig, opts: T.ModelOptions,
                         step_fn, params, opt_state, batch) -> tuple:
-    """Trace the whole train step at these inputs (on fake tensors: a
-    donated step's in-place update is traced as in-place ops and leaves
-    the inputs as they are), bind the kernels' interiors at the step's
-    shapes to its ``custom-call`` ops and register the module with
-    ``prof`` (with its cost).  Returns (module id, {op count, custom-calls
-    bound, trace and registration seconds, cost})."""
+    """Record the whole train step at these inputs' shapes
+    (``core.export.trace_train_step``: a donated step's in-place update
+    is recorded as in-place ops and leaves the inputs as they are; a
+    sharded step's local body on this rank's blocks, its collectives as
+    nodes), bind the kernels' interiors at the
+    shapes its ``custom-call`` ops take (``kernels.graph_structures``) and
+    register the module with ``prof`` (with its cost).  Returns (module
+    id, {op count, custom-calls bound, collectives, trace and
+    registration seconds, cost})."""
     from repro_torch.core import export
-    from repro_torch.kernels import kernel_structures
+    from repro_torch.kernels import graph_structures
     t0 = time.perf_counter()
-    gm = export.trace_train_step(step_fn, (params, opt_state, batch))
+    fn, args = step_fn, (params, opt_state, batch)
+    if hasattr(step_fn, "local_args"):
+        fn, args = step_fn.local_args(params, opt_state, batch)
+    gm = export.trace_train_step(fn, args)
     module = export.module_from_graph("train_step", gm)
-    B, S = batch["labels"].shape
-    bound = sum(module.bind_kernel_structure(ks) for ks in
-                kernel_structures(cfg, B, S, S, ssm_chunk=opts.ssm_chunk))
+    bound = sum(module.bind_kernel_structure(ks)
+                for ks in graph_structures(gm))
     cost = export.cost(module)
     mid = prof.register_structure("train_step", module, cost)
     return mid, dict(ops=len(module.all_ops()), custom_calls=bound,
+                     collectives=len(module.collective_ops()),
                      seconds=time.perf_counter() - t0, **cost)
 
 

@@ -26,7 +26,7 @@ gives them an O(S)-memory custom VJP; the gradient is the same).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -230,21 +230,79 @@ def chunked_attention(q, k, v, *, q_chunk: int, kv_chunk: int,
                       schedule)
 
 
-def tp_core(attend, q, tp=None):
+def tp_core(attend, q, tp=None, kv_whole: Optional[bool] = None):
     """``attend(q)`` (the attention of q against k/v it closes over) on a
     rank's heads.  With q heads split over ``tp.axis`` but the kv heads
     whole (the sharding plan's divisibility guard replicates ``wk``/``wv``
-    when Hkv does not divide over the axis), a local q head's kv group is
-    its *global* head // G: the q heads are all-gathered before the op and
-    this rank's heads sliced from its output, as GSPMD arranges in the
-    reference.  Otherwise ``attend`` runs on the heads as they are (local
-    q and kv heads line up when both are split)."""
-    if tp is None or not tp.q or tp.kv:
+    when Hkv does not divide over the axis; ``kv_whole``, by default
+    ``not tp.kv``), a local q head's kv group is its *global* head // G:
+    the q heads are all-gathered before the op and this rank's heads
+    sliced from its output, as GSPMD arranges in the reference.
+    Otherwise ``attend`` runs on the heads as they are (local q and kv
+    heads line up when both are split)."""
+    if kv_whole is None:
+        kv_whole = tp is not None and not tp.kv
+    if tp is None or not tp.q or not kv_whole:
         return attend(q)
     h = q.shape[2]
     out = attend(smc.all_gather(q, tp.axis, axis=2, tiled=True))
     i = smc.axis_index(tp.axis)
     return out[:, :, i * h:(i + 1) * h]
+
+
+class SeqSplit(NamedTuple):
+    """A decode cache whose sequence (its slots) a mesh splits over
+    ``axes``: this rank holds slots [start, start + its block's length)
+    of ``size``, every kv head of them."""
+    axes: tuple
+    start: int
+    size: int
+
+
+def merge_partials(out: torch.Tensor, lse: torch.Tensor,
+                   axes) -> torch.Tensor:
+    """The attention over a cache split over its sequence along the mesh
+    ``axes``, from each rank's partial ``out`` (B,H,D) over its slots and
+    their ``lse`` (B,H), inside a bound mesh region: the lse all-gathered
+    (small), each partial weighted by exp(lse - the largest lse) and the
+    weighted partials psum'd, as GSPMD merges the reference's softmax over
+    a split sequence.  A slice with lse -inf (no valid slot) weighs 0.
+    Returns (B,H,D) in out.dtype, the same on every rank of ``axes``."""
+    every = smc.all_gather(lse, axes, axis=0, tiled=False)   # (n, B, H)
+    top = every.amax(dim=0)
+    num = smc.psum(out.float() * torch.exp(lse - top)[..., None], axes)
+    return (num / torch.exp(every - top).sum(dim=0)[..., None]
+            ).to(out.dtype)
+
+
+def split_decode(q, k, v, k_cache, v_cache, cache_pos: int, window: int,
+                 seq: SeqSplit, tp=None):
+    """One decode step against this rank's slots of a cache split over
+    its sequence (``seq``): every kv head of the new token (gathered over
+    ``tp.axis`` when ``wk``/``wv`` are split) written into its slot where
+    this rank holds it (position ``cache_pos``, or slot ``cache_pos %
+    size`` of a window's ring), the kernel's partial attention over the
+    valid slots held here (none: length 0) with its log-sum-exp, merged
+    across ``seq.axes`` (``merge_partials``).  The cache holds every kv
+    head, so the q heads are gathered when they are split.  q (B,1,H,D)
+    -> (B,1,H,D)."""
+    n = k_cache.shape[1]
+    if tp is not None and tp.kv:
+        k = smc.all_gather(k, tp.axis, axis=2, tiled=True)
+        v = smc.all_gather(v, tp.axis, axis=2, tiled=True)
+    slot = cache_pos % seq.size if window else cache_pos
+    if seq.start <= slot < seq.start + n:
+        i = slot - seq.start
+        k_cache[:, i:i + 1] = k.to(k_cache.dtype)
+        v_cache[:, i:i + 1] = v.to(v_cache.dtype)
+    valid = min(cache_pos + 1, seq.size) if window else cache_pos + 1
+    length = max(0, min(valid - seq.start, n))
+
+    def attend(q_):
+        out, lse = ops.flash_decode(q_[:, 0], k_cache, v_cache, length,
+                                    with_lse=True)
+        return merge_partials(out, lse, seq.axes)[:, None]
+    return tp_core(attend, q, tp, kv_whole=True)
 
 
 def tp_o_proj(out, wo, tp=None):
@@ -258,7 +316,8 @@ def attention_block(params, x, positions, cfg, *, layer_window: int = 0,
                     kv_cache: Optional[Tuple] = None,
                     cache_pos: Optional[int] = None, q_chunk: int = 512,
                     kv_chunk: int = 512, schedule: str = "dense",
-                    use_kernel: bool = True, tp=None):
+                    use_kernel: bool = True, tp=None,
+                    seq: Optional[SeqSplit] = None):
     """Attention sub-block.  Returns (y, new_kv_cache).
 
     Training (``kv_cache`` None, the new cache None): causal attention with
@@ -280,7 +339,9 @@ def attention_block(params, x, positions, cfg, *, layer_window: int = 0,
     ``tp`` (``transformer.TP``): inside a sharded step's region the
     weights hold this rank's heads of a tensor-parallel axis; the kernels
     run on the local heads (``tp_core``) and the output projection is
-    psum'd over the axis (``tp_o_proj``).
+    psum'd over the axis (``tp_o_proj``).  ``seq``: in decode, the cache
+    is this rank's slots of a cache split over its sequence
+    (``split_decode``).
     """
     q, k, v = project_qkv(params, x, cfg, positions)
     if kv_cache is None:
@@ -300,6 +361,13 @@ def attention_block(params, x, positions, cfg, *, layer_window: int = 0,
     S = x.shape[1]
     cache_pos = int(cache_pos)
     k_cache, v_cache = kv_cache
+    if seq is not None:
+        if S != 1:
+            raise NotImplementedError("attention_block: a cache split over "
+                                      "its sequence takes decode steps")
+        out = split_decode(q, k, v, k_cache, v_cache, cache_pos,
+                           layer_window, seq, tp)
+        return tp_o_proj(out, params["wo"], tp), (k_cache, v_cache)
     smax = k_cache.shape[1]
     if layer_window:
         if S == 1:  # decode: one slot of the ring

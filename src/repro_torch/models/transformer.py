@@ -97,10 +97,13 @@ def layer_plan(cfg: ModelConfig) -> Tuple[Tuple[EntrySpec, ...], int]:
 
 class MeshCtx(NamedTuple):
     """What a sharded step's region knows of the mesh: the plan
-    (``distributed.sharding.ShardingPlan``) and the storage spec of every
-    parameter leaf (a tree like the params, of ``shardmap_compat.P``)."""
+    (``distributed.sharding.ShardingPlan``), the storage spec of every
+    parameter leaf (a tree like the params, of ``shardmap_compat.P``) and,
+    in decode, of every cache leaf (``cache_specs``: a k/v cache split
+    over its sequence is attended by ``attention.split_decode``)."""
     plan: Any
     specs: Any
+    cache_specs: Any = None
 
     @property
     def mesh(self):
@@ -347,13 +350,14 @@ def _write_states(cache, new: dict):
 
 
 def _apply_entry(p, spec: EntrySpec, x, positions, cfg, opts, mode: str,
-                 cache=None, cache_pos=None, ctx=None, specs=None):
+                 cache=None, cache_pos=None, ctx=None, specs=None, seq=None):
     """One block.  Returns (x, new_cache, aux): aux is the MoE aux loss
     (zero elsewhere: 0.0 for the xLSTM blocks, which have no FFN); in
     training new_cache is None.  In decode every state (k/v,
     ``ssm``/``conv``, the xLSTM states) is written into ``cache`` in
     place.  On a mesh ``p`` is the period's weights in their compute
-    layout and ``specs`` their specs (``_period_params``)."""
+    layout and ``specs`` their specs (``_period_params``); ``seq``: the
+    decode cache's k/v are this rank's slots of a split sequence."""
     _check_entry(spec)
     h = rms_norm(x, p["ln1"])
     decode = mode == "decode"
@@ -376,7 +380,7 @@ def _apply_entry(p, spec: EntrySpec, x, positions, cfg, opts, mode: str,
     window = cfg.window if spec.kind in (SWA, HYBRID) else 0
     tp = _tp(specs["attn"], ctx, "wq", "wk") if specs else None
     y, new_cache = _attention(p["attn"], h, positions, cfg, window, opts,
-                              mode, cache, cache_pos, tp)
+                              mode, cache, cache_pos, tp, seq)
     if spec.kind == HYBRID:
         ssm_state = conv_state = None
         if decode:
@@ -397,7 +401,7 @@ def _apply_entry(p, spec: EntrySpec, x, positions, cfg, opts, mode: str,
 
 
 def _attention(ap, h, positions, cfg, window, opts, mode, cache, cache_pos,
-               tp=None):
+               tp=None, seq=None):
     """Attention sub-block across the three modes.  Returns (y, cache);
     training returns no cache.  ``tp``: the heads split over a mesh axis
     (``attention.attention_block``)."""
@@ -430,7 +434,7 @@ def _attention(ap, h, positions, cfg, window, opts, mode, cache, cache_pos,
         ap, h, positions, cfg, layer_window=window,
         kv_cache=(cache["k"], cache["v"]), cache_pos=cache_pos,
         q_chunk=opts.q_chunk, kv_chunk=opts.kv_chunk,
-        schedule=opts.attn_schedule, tp=tp)
+        schedule=opts.attn_schedule, tp=tp, seq=seq)
     return y, {"k": kv[0], "v": kv[1]}
 
 
@@ -463,6 +467,22 @@ def embed_inputs(params, cfg: ModelConfig, tokens, embeds, ctx=None):
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
+def _seq_splits(ctx, cache) -> dict:
+    """entry -> ``attention.SeqSplit`` of every decode cache whose k/v
+    (period, B, S, Hkv, D) the mesh splits over their sequence."""
+    if ctx is None or ctx.cache_specs is None:
+        return {}
+    out = {}
+    for e, specs in ctx.cache_specs.items():
+        spec = specs.get("k", ())
+        axes = smc.entry_axes(spec[2]) if len(spec) > 2 else ()
+        if axes:
+            n = cache[e]["k"].shape[2]
+            out[e] = attn_mod.SeqSplit(axes, ctx.mesh.axis_index(axes) * n,
+                                       n * ctx.mesh.axis_size(axes))
+    return out
+
+
 def _stack_forward(params, x, cfg, opts, mode, cache=None, cache_pos=None,
                    positions=None, ctx=None):
     """Runs the periods in order.  Returns (x, new_cache).  In decode the
@@ -471,6 +491,7 @@ def _stack_forward(params, x, cfg, opts, mode, cache=None, cache_pos=None,
     caches."""
     entries, n_periods = layer_plan(cfg)
     built: Dict[str, list] = {f"e{i}": [] for i in range(len(entries))}
+    seqs = _seq_splits(ctx, cache) if mode == "decode" else {}
     for p in range(n_periods):
         layer_p = _index(params["layers"], p)
         specs = None
@@ -483,7 +504,8 @@ def _stack_forward(params, x, cfg, opts, mode, cache=None, cache_pos=None,
             x, nc, _ = _apply_entry(layer_p[ename], spec, x, positions,
                                     cfg, opts, mode, cache=c,
                                     cache_pos=cache_pos, ctx=ctx,
-                                    specs=specs and specs[ename])
+                                    specs=specs and specs[ename],
+                                    seq=seqs.get(ename))
             built[ename].append(nc)
     if mode == "decode":
         return x, cache

@@ -334,3 +334,108 @@ def ckpt_cases(rank, world, out, ref):
         np.savez(os.path.join(out, "resume.npz"),
                  all=np.array([h["loss"] for h in h_all]),
                  res=np.array([h["loss"] for h in h_res]))
+
+
+# ---------------------------------------------------------------------------
+# test_torch_seqcache
+# ---------------------------------------------------------------------------
+def seq_config(name: str, window: int):
+    """A reduced configuration; ``window`` > 0 replaces its window (a
+    ring shorter than the prompt)."""
+    cfg = get_config(name).reduced()
+    return dataclasses.replace(cfg, window=window) if window else cfg
+
+
+def seqcache_cases(rank, world, out, ref, cases, prompt, max_len, n_decode):
+    """Each case (name, window, mesh shape, kv_seq_axis): the sharded
+    prefill of 4 prompts, the cache grown to ``max_len`` slots as the
+    one-device ``serve`` grows it and laid out again by
+    ``cache_shardings``, then ``n_decode`` sharded decode steps; rank 0
+    writes the logits of every step and each rank the k/v layout it
+    held."""
+    from repro_torch.launch.serve import _grow_cache
+    for name, window, shape, kv_axis in cases:
+        cfg = seq_config(name, window)
+        key = f"{name}_{window}_{shape[0]}x{shape[1]}_{kv_axis}"
+        mesh = M.make_mesh(tuple(shape), ("data", "model"), "cpu")
+        plan = S.make_plan(mesh)
+        npz = np.load(os.path.join(ref, f"{name}_init.npz"))
+        params = params_from_jax(_np_tree(npz, "init"), "cpu", plan)
+        inputs = np.load(os.path.join(ref, "seq_inputs.npz"))
+        toks = torch.from_numpy(inputs["tokens"]).long()
+        nxt = torch.from_numpy(inputs["next"]).long()
+        opts = T.ModelOptions(**CHUNKS)
+        pre = steps.make_prefill_step(cfg, opts, plan=plan,
+                                      kv_seq_axis=kv_axis)
+        dec = steps.make_decode_step(cfg, opts, plan=plan)
+        logits, cache = pre(params, {"tokens": toks})
+        whole = _grow_cache(tree_map(lambda t: smc.gather_full(t, mesh),
+                                     cache), max_len, prompt)
+        cache = S.shard_tree(whole, S.cache_shardings(
+            whole, cfg, plan, kv_seq_axis=kv_axis))
+        split = [e for e, c in cache.items() if "k" in c
+                 and "model" in smc.spec_axes(smc.spec_of(c["k"]))
+                 and smc.spec_of(c["k"])[2] is not None]
+        outs = [smc.gather_full(logits, mesh).numpy()]
+        for i in range(n_decode):
+            logits, cache = dec(params, cache, prompt + i, token=nxt[:, i])
+            outs.append(smc.gather_full(logits, mesh).numpy())
+        if rank == 0:
+            np.savez(os.path.join(out, f"port_{key}.npz"),
+                     logits=np.stack(outs), split=np.array(len(split)))
+
+
+# ---------------------------------------------------------------------------
+# test_torch_dryrun
+# ---------------------------------------------------------------------------
+def _collective_log():
+    """A dispatch mode logging each collective op of the port
+    (``shardmap_compat.COLLECTIVE_OPS``) as (HLO opcode, operand bytes)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kind = smc.COLLECTIVE_OPS.get(func._schema.name)
+            if kind is not None:
+                self.calls.append((kind, args[0].numel()
+                                   * args[0].element_size()))
+            return func(*args, **(kwargs or {}))
+    return Log()
+
+
+def collective_cases(rank, world, out, seq, batch):
+    """One eager sharded train step of reduced granite on (2, 2) over
+    gloo, every collective logged; rank 0 writes the log."""
+    import json
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    mesh = M.make_mesh((2, 2), ("data", "model"), "cpu")
+    plan = S.make_plan(mesh)
+    full = T.init_params(torch.Generator().manual_seed(0), cfg)
+    params = S.shard_tree(full, S.param_shardings(full, cfg, plan))
+    step = steps.make_train_step(cfg, T.ModelOptions(), adamw.OptConfig(),
+                                 donate=True, plan=plan)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen)
+    data = {"tokens": tokens, "labels": tokens.int()}
+    fn, args = step.local_args(params, adamw.init(params), data)
+    log = _collective_log()
+    with log:
+        fn(*args)
+    if rank == 0:
+        with open(os.path.join(out, "eager_collectives.json"), "w") as f:
+            json.dump(log.calls, f)
+
+
+def profiled_train(rank, world, out):
+    """Two donated steps of reduced qwen2 on (1, 2) under the profiler:
+    each rank measures itself into ``<out>/prof/rank<R>``."""
+    from repro_torch.launch.train import train
+    cfg = get_config("qwen2-1.5b").reduced()
+    mesh = M.make_mesh((1, world), ("data", "model"), "cpu")
+    train(cfg, ShapeConfig("t", 32, 2, "train"), n_steps=2, mesh=mesh,
+          profile_dir=os.path.join(out, "prof"), device="cpu",
+          opts=T.ModelOptions(**CHUNKS), log_every=1)

@@ -218,3 +218,61 @@ def test_serve_profile_has_no_tool_frames(tmp_path):
             "sync:device_sync"} <= names
     for label in ("cpu_trace_0", "gpu_0", "gpu_trace_0"):
         assert os.path.getsize(paths[label]) > 0
+
+
+def test_profiler_keys_threads_that_run_one_after_another(tmp_path):
+    """Eight threads started and joined one after another (so an ended
+    thread's ident can pass to the next) each dispatch under the port's
+    profiler: eight thread profiles, every dispatch attributed once.  The
+    port keys a thread's state by a thread-local, not by
+    ``threading.get_ident``."""
+    import threading
+    prof = tprofiler.Profiler(str(tmp_path), tracing=False, rng_seed=0,
+                              unwind=False)
+    n, k = 8, 3
+
+    def worker():
+        for _ in range(k):
+            with prof.dispatch("kernel", "step", stream=0):
+                pass
+
+    with prof:
+        for _ in range(n):
+            t = threading.Thread(target=worker)
+            t.start()
+            t.join()
+        assert prof.flush(timeout=30)
+    paths = prof.write()
+    cpu = [v for key, v in paths.items()
+           if key.startswith("cpu_") and "trace" not in key]
+    assert len(cpu) == n
+    total = 0
+    for path in cpu:
+        d = read_profile(path)
+        inv = d.metrics.index("gpu_kernel/invocations")
+        total += sum(v for m, v in zip(d.value_mids, d.values) if m == inv)
+    assert total == n * k
+
+
+def test_callgraph_copy_rebuilds_fig5_as_the_reference():
+    """The paper's Fig. 5 (``tests/test_callgraph.py``'s graph) through
+    the port's copy of the reconstruction: the same tree as the JAX
+    package's, node by node, with the same costs and SCC members."""
+    from repro.core import callgraph as jcg
+    from repro_torch.core import callgraph as tcg
+
+    def fig5(mod):
+        edges = {("A", "B"): 0.0, ("A", "C"): 1.0, ("B", "D"): 1.0,
+                 ("C", "D"): 3.0, ("D", "E"): 2.0, ("E", "D"): 2.0}
+        samples = {"A": 10.0, "B": 4.0, "C": 6.0, "D": 8.0, "E": 4.0}
+        return mod.CallGraph(["A", "B", "C", "D", "E"], edges, samples)
+
+    def walk(node):
+        return (node.name, node.cost, tuple(node.members),
+                tuple(walk(c) for c in node.children))
+
+    want = jcg.reconstruct(fig5(jcg), roots=["A"])
+    got = tcg.reconstruct(fig5(tcg), roots=["A"])
+    assert walk(got) == walk(want)
+    assert got.find("SCC{D,E}").members == ("D", "E")
+    assert got.total() == pytest.approx(32.0)

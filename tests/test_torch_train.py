@@ -743,7 +743,7 @@ def test_train_under_profiler_registers_the_step(tmp_path):
     (True, "dots_no_batch", 2), (True, "nothing", 2),
     (True, "everything", 1), (False, "dots_no_batch", 1)])
 def test_traced_step_has_a_node_per_launch(remat, policy, per_layer):
-    """The traced train step (make_fx on fake tensors) has one custom-call
+    """The traced train step (recorded on meta tensors) has one custom-call
     per forward launch of each kernel, recompute included, on hymba
     (flash and SSD scan); tracing runs nothing and counts no launch."""
     cfg, _ = configs("hymba-1.5b", "float32")
