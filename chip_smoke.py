@@ -3,11 +3,13 @@
     python3 chip_smoke.py
 
 Every path runs at published widths and full depth but qwen2-1.5b's,
-granite-moe-1b-a400m's, hymba-1.5b's and xlstm-125m's, which run at 6 of
-28, 6 of 24, 6 of 32 and 6 of 12 layers (``CUT_DEPTH``; the multi-rank
-phase's granite-moe at 8, ``MR_LAYERS``), and the profiled
-starcoder2-15b serve, at 6 of 40.  Phases, each of which raises (non-zero exit, no result
-line) on failure:
+granite-moe-1b-a400m's, hymba-1.5b's and xlstm-125m's, which run at 4 of
+28, 4 of 24, 4 of 32 and 6 of 12 layers (``CUT_DEPTH``; the multi-rank
+phase's granite-moe at 8, ``MR_LAYERS``), musicgen-large's training
+at 24 of 48 (its serve at 48), and the profiled serves of starcoder2-15b
+at 4 of 40 and of the MAMBA path (hymba-1.5b's widths, MAMBA blocks
+alone, ``MAMBA_PATH``) at 6 of 32.  Phases, each of which raises
+(non-zero exit, no result line) on failure:
 
 1. refuse to run without CUDA; print the card's name and power limit;
 2. build every CUDA kernel of the serving paths from ``src/repro_torch/csrc``
@@ -42,7 +44,9 @@ line) on failure:
    backward none;
 3b. serve the reference's single-card configurations at full width and
    depth, one at a time, each freed before the next: qwen3-32b,
-   starcoder2-15b, yi-6b, llava-next-mistral-7b and musicgen-large.  For
+   starcoder2-15b, yi-6b, llava-next-mistral-7b and musicgen-large, and
+   the MAMBA path (hymba-1.5b's widths with MAMBA blocks alone, 32
+   layers: 96 SSD launches, no attention launch, in a serve).  For
    each: the bytes ``launch.specs.params_struct`` reckons, the card's free
    memory, the init's peak (within the weights plus one fp32 slice plus 1
    GiB) and what it leaves allocated, held exactly (``init_big``: the
@@ -63,10 +67,10 @@ line) on failure:
    ``launch.specs.train_memory``, leaves 2 GiB of the card free), timed
    as in 4, its ``torch.cuda.max_memory_allocated`` held to the reckoning
    within 2 GiB;
-4. time a train step of qwen2-1.5b, hymba-1.5b, granite-moe-1b-a400m
-   and xlstm-125m at full width under torch.profiler (host wall, device
-   busy, idle share, tokens/s, the kernels' share) on a
-   repeated batch whose loss must fall, and split one step's device time
+4. time a train step of qwen2-1.5b, hymba-1.5b, granite-moe-1b-a400m,
+   xlstm-125m and the MAMBA path at full width under torch.profiler
+   (host wall, device busy, idle share, tokens/s, the kernels' share) on
+   a repeated batch whose loss must fall, and split one step's device time
    by the train step's named scopes (``fwd_bwd``, its forward and its
    backward with the remat recompute, ``optimizer``; qwen2's optimizer
    also with the functional, not donated, step); print each step's peak
@@ -112,9 +116,11 @@ line) on failure:
    card and check every row's per-request attribution;
 9. train qwen2-1.5b and granite-moe-1b-a400m (6 steps of 4 x 512, under
    the port's profiler), hymba-1.5b (3 steps of 2 x 1536), xlstm-125m
-   (6 steps of 4 x 256, the JAX package's CLI defaults), musicgen-large
-   on tokens and on audio frames (4 steps of 4 x 512) and yi-6b (3 steps
-   of 4 x 512, after the reckoning's check of 3b again) at full width through ``repro_torch.launch.train.train``
+   (6 steps of 4 x 256, the JAX package's CLI defaults), the MAMBA path
+   (3 steps of 2 x 1536, 32 layers), musicgen-large on tokens and on
+   audio frames (4 steps of 4 x 512) and yi-6b (3 steps of 4 x 512,
+   after the reckoning's check of 3b again) at full width through
+   ``repro_torch.launch.train.train``
    (the donated step), launch counters set to 0
    just before and read just after each: the launch counts the
    remat policy implies, finite losses, one custom-call per launch in the
@@ -122,14 +128,16 @@ line) on failure:
    flash kernel's dot_general leaves, and each named scope's share of
    them (printed beside the scope's device ms from phase 4); one 2-layer
    full-width train step (loss and every gradient leaf) of qwen2,
-   granite-moe, xlstm, musicgen-large (both kinds of batch) and yi-6b
-   against the same bf16 weights on the CPU; resumes (hymba,
-   musicgen-large on frames, yi-6b) from an async checkpoint whose first
-   loss is bitwise the uninterrupted run's;
-10. serve starcoder2-15b at full width and 10 layers under the port's
+   granite-moe, xlstm, the MAMBA path, musicgen-large (both kinds of
+   batch) and yi-6b against the same bf16 weights on the CPU; resumes
+   (hymba, the MAMBA path, musicgen-large on frames, yi-6b) from an
+   async checkpoint whose first loss is bitwise the uninterrupted run's;
+10. serve starcoder2-15b at full width and 4 layers under the port's
    profiler and check, as in 5, PC samples that reach the decode
-   kernel's dot_general leaves at G = 12.  Nothing is timed under
-   torch.profiler after it;
+   kernel's dot_general leaves at G = 12; then the MAMBA path at 6
+   layers, whose samples must reach the SSD scan's dot_general leaves;
+   print one line of everything the MAMBA path measured, with the card.
+   Nothing is timed under torch.profiler after it;
 11. run the eight examples that port the JAX package's examples
    (``examples/torch_*.py``) with ``--device cuda``, all at once, each
    exiting 0; ``torch_find_redundant_sync`` finds a context with diff >
@@ -153,7 +161,9 @@ line) on failure:
    FLOPs to ``FlopCounterMode``'s over the step on the card, its peak to
    ``max_memory_allocated`` within 10% and its roofline to at most the
    device's busy time, at (1, 2) its collectives to the collective ops
-   torch.profiler finds in a step; a serve with the cache split over its
+   torch.profiler finds in a step, and the port's collective op events
+   to those calls plus the calls the remat's dispatch mode enters
+   (``collective_op_events``); a serve with the cache split over its
    sequence (``kv_seq_axis="model"``: 4 x 512 prefill, 7 decode steps,
    every kv head of 260 slots a rank, the ranks' partial attentions
    merged by log-sum-exp) against the unsharded steps; the decode kernel
@@ -220,7 +230,7 @@ SOURCES = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
 
 
 # the first four paths run every path (serving, the step breakdowns,
-# training) at a cut depth and published widths, 6 layers each (xlstm one
+# training) at a cut depth and published widths, 4 layers each (xlstm one
 # period of 6 of 12): their host-bound steps and exports took the most
 # wall per check of the script (hymba's serving export 47 s at 8 layers,
 # a full-depth train step 3.4 s for 0.94 s of device time; xlstm's export
@@ -228,18 +238,43 @@ SOURCES = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
 # profiled exports 19-46 s a step, about linear in layers), and with
 # qwen2, granite-moe and hymba at 8 layers and the multi-rank phase's dry
 # run, seq-split serve and profiled steps the script took 962.7 s on an
-# NVIDIA H100 80GB HBM3 at 700 W, on a host whose wall varies 1.3-1.7x
-CUT_DEPTH = {"qwen2-1.5b": 6, "granite-moe-1b-a400m": 6, "hymba-1.5b": 6,
+# NVIDIA H100 80GB HBM3 at 700 W, on a host whose wall varies 1.3-1.7x;
+# the MAMBA path adds about 85 s (its pieces took 83 s alone on such a
+# card), so qwen2, granite-moe and hymba (whose SSD scan the MAMBA path
+# also runs at full depth) run at 4 layers: with them at 6 the script
+# took 997.7 s on a host 1.22x slower than another's
+CUT_DEPTH = {"qwen2-1.5b": 4, "granite-moe-1b-a400m": 4, "hymba-1.5b": 4,
              "xlstm-125m": 6}
+# the MAMBA path: hymba-1.5b's published widths (d 1600, 25 heads of 64,
+# state 16, vocab 32,001) with MAMBA blocks alone, the mamba mixer
+# through the SSD kernel and no FFN, at hymba's full depth of 32 layers
+# (no configuration of the reference has a MAMBA block; its
+# ``_init_entry`` builds one); it serves and trains at hymba's shapes,
+# and under the port's profiler at 6 layers (its export costs scale with
+# layers)
+MAMBA_PATH = "hymba-1.5b:mamba"
+MAMBA_PROFILED_LAYERS = 6
 
 
 def _config(name: str):
     """A path's configuration: published widths, at ``CUT_DEPTH``'s
-    depth where it is cut."""
+    depth where it is cut; ``<name>:mamba`` is ``name``'s widths and
+    depth with ``block_pattern=(MAMBA,)``."""
     from repro_torch.configs import get_config
-    cfg = get_config(name)
+    from repro_torch.configs.base import MAMBA
+    base, _, kind = name.partition(":")
+    cfg = get_config(base)
+    if kind == "mamba":   # named apart: its profiles and databases too
+        return dataclasses.replace(cfg, block_pattern=(MAMBA,),
+                                   name=f"{base}-mamba")
     return dataclasses.replace(cfg,
                                n_layers=CUT_DEPTH.get(name, cfg.n_layers))
+
+
+def _has_mamba(cfg) -> bool:
+    """Whether a stack runs the mamba mixer (the SSD scan)."""
+    from repro_torch.configs.base import HYBRID, MAMBA
+    return any(k in (HYBRID, MAMBA) for k in cfg.blocks)
 
 
 def card_line() -> str:
@@ -703,7 +738,9 @@ def time_kernels(cfg, prompt: int) -> tuple:
     mid-generation step sees, and the SSD scan of a prefill.  Returns
     ({kernel: times}, {split count: decode kernel device ms} over every
     count up to ``MAX_SPLITS``, with the planner's own count, {device
-    kernel: ms} of the SSD scan's steps, empty without a mamba layer)."""
+    kernel: ms} of the SSD scan's steps, empty without a mamba layer).
+    A stack without attention (MAMBA blocks alone) times the scan
+    alone."""
     from repro_torch.configs.base import HYBRID, SWA
     from repro_torch.kernels import decode_attention as fd
     from repro_torch.kernels import ops
@@ -713,6 +750,15 @@ def time_kernels(cfg, prompt: int) -> tuple:
     windowed = any(k in (SWA, HYBRID) for k in cfg.blocks)
     window = cfg.window if windowed else 0
     res, steps = {}, {}
+    if _has_mamba(cfg):
+        # serve's ssm_chunk
+        fns, flops, nbytes = _ssm_fns(gen, B, prompt, h, d, cfg.ssm_state,
+                                      min(64, prompt))
+        res["ssm_scan"] = _timed(fns, flops, nbytes)
+        steps = {(PORT_KERNEL.search(k) or re.search(".*", k)).group(0): v
+                 for k, v in device_ms_by_kernel(fns["ms"]).items()}
+    if not _has_attention(cfg):
+        return res, {}, steps
     res["flash_attention"] = _timed(*_flash_fns(gen, B, prompt, h, hkv, d,
                                                 window))
     # decode: a mid-generation step; a window layer's ring is full
@@ -742,13 +788,6 @@ def time_kernels(cfg, prompt: int) -> tuple:
             iters=50))
     plan = fd.plan_splits(B, hkv, length, fd._sm_count(qd.device),
                           fd.q_tiles(h, hkv))
-    if HYBRID in cfg.blocks:
-        # serve's ssm_chunk
-        fns, flops, nbytes = _ssm_fns(gen, B, prompt, h, d, cfg.ssm_state,
-                                      min(64, prompt))
-        res["ssm_scan"] = _timed(fns, flops, nbytes)
-        steps = {(PORT_KERNEL.search(k) or re.search(".*", k)).group(0): v
-                 for k, v in device_ms_by_kernel(fns["ms"]).items()}
     return res, dict(planner=list(plan), device_ms=splits), steps
 
 
@@ -834,8 +873,9 @@ def wrapper_host_us(cfg, prompt: int) -> dict:
         lambda: fa.flash_attention_cuda(q, k, k, window=window)),
         "flash_decode": (
         lambda: ops.flash_decode(qd, kc, kc, length),
-        lambda: fd.flash_decode_cuda(qd, kc, kc, length))}
-    if HYBRID in cfg.blocks:
+        lambda: fd.flash_decode_cuda(qd, kc, kc, length))} \
+        if _has_attention(cfg) else {}
+    if _has_mamba(cfg):
         xv, ld, Bm, Cm, _ = _ssm_inputs(gen, B, prompt, h, d, cfg.ssm_state)
         chunk = min(64, prompt)
         pairs["ssm_scan"] = (
@@ -930,15 +970,16 @@ def _serve_opts(prompt: int):
 def serve_launches(cfg) -> dict:
     """Each kernel's launches in one ``serve`` of ``N_REQUESTS`` in batches
     of ``B``: every attention layer's flash prefill once a prefill and its
-    decode once a decode step, every hybrid layer's SSD scan once a
-    prefill, for the warm-up and each batch."""
-    from repro_torch.configs.base import HYBRID
+    decode once a decode step, every mamba layer's (HYBRID or MAMBA) SSD
+    scan once a prefill (decode is the O(1) recurrence), for the warm-up
+    and each batch."""
+    from repro_torch.configs.base import ATTN, HYBRID, MAMBA, SWA
     n_batches = -(-N_REQUESTS // B)
-    n_attn = cfg.n_layers if _has_attention(cfg) else 0
-    n_hybrid = sum(k == HYBRID for k in cfg.blocks)
+    n_attn = sum(k in (ATTN, SWA, HYBRID) for k in cfg.blocks)
+    n_mamba = sum(k in (HYBRID, MAMBA) for k in cfg.blocks)
     return {"flash_attention": n_attn * (n_batches + 1),
             "flash_decode": n_attn * ((GEN_LEN - 1) * n_batches + 1),
-            "ssm_scan": n_hybrid * (n_batches + 1)}
+            "ssm_scan": n_mamba * (n_batches + 1)}
 
 
 def run_serve(cfg, params, prompt: int) -> dict:
@@ -996,9 +1037,11 @@ def check_profile(cfg, paths: dict) -> dict:
     with open(paths["measurement"]) as f:
         measurement = json.load(f)
     structure = measurement["steps"]
-    want = {"prefill": {"flash_attention"}, "decode_step":
-            {"decode_attention"}}
-    if "hybrid" in cfg.blocks:
+    want = {"prefill": set(), "decode_step": set()}
+    if _has_attention(cfg):
+        want["prefill"].add("flash_attention")
+        want["decode_step"].add("decode_attention")
+    if _has_mamba(cfg):
         want["prefill"].add("ssm_scan")
     out = {}
     for step, kernels in want.items():
@@ -1099,7 +1142,6 @@ def check_sass() -> dict:
     """Ground the source-derived kernel structures in the binaries: at
     every path's shapes, every dot_general leaf's line has at least one
     SASS instruction.  Returns {kernel: dot_general lines checked}."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels import build, kernel_structures
     libs = build.build(["flash_attention", "decode_attention", "ssm_scan"])
     tables = {name: sass_lines(str(path), os.path.join(
@@ -1110,7 +1152,7 @@ def check_sass() -> dict:
     paths += [(name, spec["frontend_seq"]) for name, spec in BIG_PATHS.items()
               if spec.get("frontend_seq", spec["prompt"]) != spec["prompt"]]
     for name, prompt in paths:
-        for ks in kernel_structures(get_config(name), B, prompt,
+        for ks in kernel_structures(_config(name), B, prompt,
                                     prompt + GEN_LEN):
             lib = ks.file[:-len(".cu")]
             dots = {(lf.frames[-1].module, lf.line) for lf in ks.leaves
@@ -1344,12 +1386,11 @@ def time_path(name: str, prompt: int = 0, label: str = "") -> dict:
     drops them too (1 of 20 launches a window after a 2-layer serve, 4
     after a full-depth one; none after an export, a registration or a
     profiled serve that draws no samples).  Returns the kernel times,
-    empty without attention."""
-    from repro_torch.configs import get_config
-    cfg = get_config(name)
+    empty without attention and mamba layers."""
+    cfg = _config(name)
     prompt = prompt or {**PATHS, **SERVING_PATHS, **BIG_PATHS}[name]["prompt"]
     label = label or name
-    if not _has_attention(cfg):
+    if not (_has_attention(cfg) or _has_mamba(cfg)):
         return {}
     times, splits, steps = time_kernels(cfg, prompt)
     for kname, (t, calls) in times.items():
@@ -1357,8 +1398,9 @@ def time_path(name: str, prompt: int = 0, label: str = "") -> dict:
                    if kname == "ssm_scan" else "")
         print(f"{label} {kname}: device {json.dumps(t)}; back-to-back call "
               f"{json.dumps(calls)}{by_step}", flush=True)
-    print(f"{label} flash_decode by split count: {json.dumps(splits)}",
-          flush=True)
+    if splits:
+        print(f"{label} flash_decode by split count: {json.dumps(splits)}",
+              flush=True)
     if "ssm_scan" in times:
         print("ssm_scan library_ms: null, no single PyTorch call computes "
               "a selective (SSD) scan", flush=True)
@@ -1552,12 +1594,14 @@ BIG_PATHS = {
     "llava-next-mistral-7b": dict(prompt=512, frontend_seq=6144,
                                   cpu_batch=2, cpu_prompt=32),
     "musicgen-large": dict(prompt=512, frontend_seq=512, cpu_batch=2,
-                           cpu_prompt=64)}
+                           cpu_prompt=64),
+    # the MAMBA path at hymba's serving prompt (3 chunks of 64 on the CPU)
+    MAMBA_PATH: dict(prompt=1536, cpu_batch=2, cpu_prompt=192)}
 # the profiled serve after the training phase: starcoder2-15b's decode
-# kernel at G = 12 under the port's profiler, at full width and 10 of its
+# kernel at G = 12 under the port's profiler, at full width and 4 of its
 # 40 layers (at 40, its two steps' exports took 57 s of the card's host)
 PROFILED_BIG = "starcoder2-15b"
-PROFILED_BIG_LAYERS = 6
+PROFILED_BIG_LAYERS = 4
 
 
 def _live_blocks() -> set:
@@ -1612,10 +1656,9 @@ def init_big(name: str) -> tuple:
     MiB and leaves 262,144 bytes unsplit; such remainders depend on what
     the pool held before).  Returns (params, {weights, largest slice,
     peak, free before, the blocks})."""
-    from repro_torch.configs import get_config
     from repro_torch.launch import specs
     from repro_torch.tree import leaves_with_paths
-    cfg = get_config(name)
+    cfg = _config(name)
     struct = specs.params_struct(cfg)
     weights = specs.nbytes(struct)
     slice_fp32 = max(4 * t.numel() // (t.shape[0] if path[0] == "layers"
@@ -1776,13 +1819,12 @@ def time_big_kernels() -> dict:
     vlm prefill over 6144 positions and the decode after it; the plain
     attention over 6144 positions takes about 58 GB, so this runs with
     no weights on the card).  Returns {path: kernel times}."""
-    from repro_torch.configs import get_config
     out = {}
     for name, spec in BIG_PATHS.items():
         out[name] = time_path(name)
         seq = spec.get("frontend_seq")
         if seq:
-            label = f"{name}:{get_config(name).frontend}"
+            label = f"{name}:{_config(name).frontend}"
             out[label] = out[name] if seq == spec["prompt"] else \
                 time_path(name, seq, label)
         torch.cuda.empty_cache()
@@ -1824,8 +1866,7 @@ def big_path(name: str, card: str) -> dict:
     as well; the 2-layer full-width model against the CPU on tokens, and
     for a frontend on its embeddings.  Frees the weights.  Returns
     {serve, phase, frontend, cpu, init}."""
-    from repro_torch.configs import get_config
-    cfg = get_config(name)
+    cfg = _config(name)
     spec = BIG_PATHS[name]
     prompt = spec["prompt"]
     t0 = time.monotonic()
@@ -1880,32 +1921,59 @@ def big_path(name: str, card: str) -> dict:
     return out
 
 
-def profiled_big_serve(card: str) -> dict:
-    """``PROFILED_BIG`` served under the port's profiler at full width
-    and ``PROFILED_BIG_LAYERS`` layers (``run_serve``): export
-    and registration seconds and ops, and PC samples under both steps
-    that reach each kernel's dot_general leaves (``check_profile``; the
-    decode kernel's at G = 12).  Runs after every torch.profiler timing
-    (see ``time_path``).  Returns the serve result."""
-    from repro_torch.configs import get_config
+def profiled_big_serve(card: str, name: str = PROFILED_BIG,
+                       layers: int = PROFILED_BIG_LAYERS) -> dict:
+    """One of ``BIG_PATHS`` (``PROFILED_BIG`` by default) served under the
+    port's profiler at full width and ``layers`` layers (``run_serve``:
+    exact launches): export and registration seconds and ops, and PC
+    samples under both steps that reach each kernel's dot_general leaves
+    (``check_profile``; starcoder2's decode kernel's at G = 12, the MAMBA
+    path's SSD scan).  Runs after every torch.profiler timing (see
+    ``time_path``).  Returns the serve result."""
     from repro_torch.models import transformer as T
-    cfg = dataclasses.replace(get_config(PROFILED_BIG),
-                              n_layers=PROFILED_BIG_LAYERS)
+    cfg = dataclasses.replace(_config(name), n_layers=layers)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = T.init_params(gen, cfg)
-    srv = run_serve(cfg, params, BIG_PATHS[PROFILED_BIG]["prompt"])
+    srv = run_serve(cfg, params, BIG_PATHS[name]["prompt"])
     del params
     torch.cuda.empty_cache()
-    print(f"serve {cfg.name} under the port's profiler ({card}), "
+    print(f"serve {name} under the port's profiler ({card}), "
           f"{cfg.n_layers} layers: wall {srv['wall_s']:.2f} s (incl. "
           f"warm-up, export and registration), prefill "
           f"{srv['prefill_ms']:.3f} ms/batch, decode {srv['decode_ms']:.3f} "
           f"ms/step; launches {json.dumps(srv['launches'])}", flush=True)
     prof = check_profile(cfg, srv["paths"])
-    print(f"profile {cfg.name} ({cfg.n_layers} layers): {json.dumps(prof)}",
-          flush=True)
+    print(f"profile {name} ({cfg.n_layers} layers, {card}): "
+          f"{json.dumps(prof)}", flush=True)
     return dict(srv, profile=prof)
+
+
+def mamba_summary(big: dict, step_times: dict, train_runs: dict,
+                  profiled: dict) -> dict:
+    """What the MAMBA path measured and checked, from the phases that ran
+    it: the weights reckoned and allocated, the full-depth serve's exact
+    launches, prefill and decode ms and tokens/s, the 2-layer CPU checks,
+    the train step's wall, busy and idle share, the full-depth training's
+    launches and losses, the resume, the profiled serve's launches and PC
+    samples in the SSD scan's interior."""
+    srv, step, run = big[MAMBA_PATH], step_times[MAMBA_PATH], \
+        train_runs[MAMBA_PATH]
+    ssd = profiled["profile"]["prefill"]["kernels"]["ssm_scan"]
+    return dict(
+        layers=_config(MAMBA_PATH).n_layers,
+        weights_reckoned=srv["init"]["weights"],
+        allocated=srv["init"]["allocated"],
+        serve_launches=srv["serve"]["launches"], **srv["phase"],
+        cpu_logits=srv["cpu"]["tokens"],
+        train_step=dict(wall_ms=step["wall_ms"],
+                        device_busy_ms=step["device_busy_ms"],
+                        idle_share=step["idle_share"],
+                        tokens_per_s=step["tokens_per_s"]),
+        train_launches=run["launches"], train_losses=run["losses"],
+        cpu_grads=run["cpu"], resume=run["resume"],
+        profiled=dict(layers=MAMBA_PROFILED_LAYERS,
+                      launches=profiled["launches"], ssd_samples=ssd))
 
 
 def run_sweep_on_card() -> list:
@@ -1960,7 +2028,9 @@ TRAIN_PATHS = {"qwen2-1.5b": dict(batch=4, seq=512, steps=6, profile=True),
                "xlstm-125m": dict(batch=4, seq=256, steps=6, profile=False,
                                   cpu_blocks=("mlstm", "slstm"),
                                   cpu_checks=(("float32", True),
-                                              ("bfloat16", False)))}
+                                              ("bfloat16", False))),
+               # at full depth, hymba's training shape, not profiled
+               MAMBA_PATH: dict(batch=2, seq=1536, steps=3, profile=False)}
 # the reference's single-card configurations that train on one card with
 # the donated step, at full width and depth: musicgen-large
 # on token batches (its EnCodec codebook entries; the frontend off) and on
@@ -1970,9 +2040,13 @@ TRAIN_PATHS = {"qwen2-1.5b": dict(batch=4, seq=512, steps=6, profile=True),
 # the 84.1 GB an H100 80GB HBM3 reports free; ``reckon_train`` holds each
 # run to that before it starts.  Each is timed with nothing else on the
 # card, after the single-card serves
+# musicgen-large trains at 24 of its 48 layers (``layers``; at 48 each of
+# its two train step timings took about 30 s of the script)
 BIG_TRAIN_PATHS = {
-    "musicgen-large:tokens": dict(batch=4, seq=512, steps=4, profile=False),
-    "musicgen-large:audio": dict(batch=4, seq=512, steps=4, profile=False),
+    "musicgen-large:tokens": dict(batch=4, seq=512, steps=4, profile=False,
+                                  layers=24),
+    "musicgen-large:audio": dict(batch=4, seq=512, steps=4, profile=False,
+                                 layers=24),
     "yi-6b": dict(batch=4, seq=512, steps=3, profile=False)}
 TRAIN_HEADROOM = 2 ** 31   # free memory a reckoned train step must leave
 PEAK_TOL = 2 ** 31         # a train step's peak against its reckoning
@@ -1993,11 +2067,15 @@ def _train_spec(key: str) -> dict:
 
 
 def _train_config(key: str):
-    """A training path's configuration (``_config``); ``<name>:tokens``
-    is the model with its frontend off (token batches), ``<name>:audio``
-    the model as configured."""
+    """A training path's configuration (``_config``, at its spec's
+    ``layers`` where it has one); ``<name>:tokens`` is the model with its
+    frontend off (token batches), ``<name>:audio`` the model as
+    configured, ``<name>:mamba`` the MAMBA path."""
     name, _, kind = key.partition(":")
-    cfg = _config(name)
+    cfg = _config(key if kind == "mamba" else name)
+    layers = _train_spec(key).get("layers")
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     return dataclasses.replace(cfg, frontend="none") if kind == "tokens" \
         else cfg
 
@@ -2122,10 +2200,12 @@ def check_kernel_grads() -> tuple:
             (do,))
         forward((path, "flash_attention"), out, want_out, [TOL])
         hold("flash_attention", got, want, [TOL] * 3)
-    # (path, B, S, nh, hd, st, chunk, h0): hymba's training shape (no h0)
-    # and with h0, a ragged S, unpadded rows (hd 120, st 50)
+    # (path, B, S, nh, hd, st, chunk, h0): hymba's training shape (no h0;
+    # the MAMBA path's too) and with h0, a ragged S, unpadded rows (hd
+    # 120, st 50)
     for path, b, s, nh, hd, st, chunk, with_h0 in [
             ("hymba-1.5b", 2, 1536, 25, 64, 16, 64, False),
+            (MAMBA_PATH, 2, 1536, 25, 64, 16, 64, False),
             ("edge", 2, 1536, 25, 64, 16, 64, True),
             ("edge", 2, 200, 3, 64, 16, 64, True),
             ("edge", 1, 500, 2, 120, 50, 225, True)]:
@@ -2182,7 +2262,7 @@ def time_train_kernels(name: str) -> dict:
         kernels["flash_attention"] = _timed(*_flash_fns(
             gen, b, seq, h, hkv, d,
             cfg.window if HYBRID in cfg.blocks else 0))
-    if HYBRID in cfg.blocks:
+    if _has_mamba(cfg):
         kernels["ssm_scan"] = _timed(*_ssm_fns(gen, b, seq, h, d,
                                                cfg.ssm_state, 64))
     return kernels
@@ -2339,7 +2419,7 @@ def train_path(name: str) -> dict:
     flash_attention.cu, and in the ``fwd_bwd`` and ``optimizer`` scopes
     (``scope.shares``: each scope's share of the samples under the
     placeholder).  Returns the run's numbers."""
-    from repro_torch.configs.base import HYBRID, ShapeConfig
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import scope, viewer
     from repro_torch.kernels import ops
     from repro_torch.launch.train import train
@@ -2367,7 +2447,7 @@ def train_path(name: str) -> dict:
     want = {"flash_attention": per_step * spec["steps"]
             if _has_attention(cfg) else 0, "flash_decode": 0,
             "ssm_scan": per_step * spec["steps"]
-            if HYBRID in cfg.blocks else 0}
+            if _has_mamba(cfg) else 0}
     losses = [h["loss"] for h in hist]
     print(f"train {name}: launches {json.dumps(launches)}, expected "
           f"{json.dumps(want)} ({cfg.n_layers} layers x {spec['steps']} "
@@ -2562,8 +2642,8 @@ TRAINED = tuple(TRAIN_PATHS) + tuple(BIG_TRAIN_PATHS)
 # the 2-layer full-width resumes: hymba-1.5b's, and the
 # single-card configurations' (musicgen-large on its frame embeddings,
 # yi-6b: 0.93 B parameters at 2 layers, a 9.3 GB checkpoint), (seq, batch)
-RESUMES = {"hymba-1.5b": (512, 2), "musicgen-large:audio": (256, 2),
-           "yi-6b": (256, 2)}
+RESUMES = {"hymba-1.5b": (512, 2), MAMBA_PATH: (512, 2),
+           "musicgen-large:audio": (256, 2), "yi-6b": (256, 2)}
 
 
 def training_phase(card: str, step_times: dict) -> dict:
@@ -2596,17 +2676,19 @@ def training_phase(card: str, step_times: dict) -> dict:
             cpu = check_train_against_cpu(name, 64, 0,
                                           spec.get("cpu_blocks"), dtype,
                                           hold)
+            runs[name].setdefault("cpu", []).append(cpu)
             print(f"{name}: 2-layer full-width train step (B=2, S=64) vs "
-                  f"CPU plain: {json.dumps(cpu)}", flush=True)
+                  f"CPU plain ({card}): {json.dumps(cpu)}", flush=True)
     cli = train_cli()
     print(f"python -m repro_torch.launch.train (no arguments but --steps "
           f"2: xlstm-125m, 4 x 256, on the card): {json.dumps(cli)}",
           flush=True)
     for name, (seq, batch) in RESUMES.items():
         res = check_train_resume(name, seq, batch)
+        runs[name]["resume"] = res
         print(f"{name}: 2-layer full-width resume ({batch} x {seq}) from an "
-              f"async checkpoint: bitwise equal loss {json.dumps(res)}",
-              flush=True)
+              f"async checkpoint ({card}): bitwise equal loss "
+              f"{json.dumps(res)}", flush=True)
     return runs
 
 
@@ -2765,6 +2847,61 @@ MR_FLOPS_TOL = 1e-9
 MR_COLLECTIVE = re.compile(r"^(nccl|gloo):")
 
 
+def collective_op_events(events) -> dict:
+    """The port's collective op events (``repro_torch::all_reduce``, ...)
+    in a torch.profiler trace, by HLO kind: ``events`` all of them,
+    ``calls`` those that run the collective (no event of the same op
+    inside them), ``mode_entries`` the others and ``calls_under_mode``
+    the calls inside one.  torch.profiler records an op at every entry to
+    the dispatcher, and a TorchDispatchMode re-enters it for every op it
+    intercepts: the remat's selective checkpoint runs each period (its
+    forward and its recompute in the backward) under one, so a collective
+    called there has two events, the mode's entry and the call, for one
+    collective.  So ``events`` = ``calls`` + ``calls_under_mode``, and
+    ``calls`` is what ran."""
+    from repro_torch.distributed.shardmap_compat import COLLECTIVE_OPS
+
+    def inside(e, name) -> bool:
+        return any(c.name == name or inside(c, name) for c in e.cpu_children)
+
+    def under(e, name) -> bool:
+        p = e.cpu_parent
+        while p is not None:
+            if p.name == name:
+                return True
+            p = p.cpu_parent
+        return False
+    out: dict = {}
+    for e in events:
+        kind = COLLECTIVE_OPS.get(e.name)
+        if kind is None:
+            continue
+        n = out.setdefault(kind, dict(events=0, calls=0, mode_entries=0,
+                                      calls_under_mode=0))
+        n["events"] += 1
+        if inside(e, e.name):
+            n["mode_entries"] += 1
+        else:
+            n["calls"] += 1
+            n["calls_under_mode"] += under(e, e.name)
+    return out
+
+
+def check_collective_events(ops: dict, calls: dict, what: str) -> None:
+    """Hold ``collective_op_events``' counts to the collectives that ran
+    (``calls``, by kind: the backend's or the dry run's): each kind's
+    calls are them, every mode entry holds one call, and the events are
+    the calls plus the calls under a mode, no other."""
+    got = {k: v["calls"] for k, v in ops.items()}
+    if got != calls:
+        raise AssertionError(f"{what}: the collective ops' calls {got}, "
+                             f"against {calls}")
+    for kind, n in ops.items():
+        if n["mode_entries"] != n["calls_under_mode"] or \
+                n["events"] != n["calls"] + n["calls_under_mode"]:
+            raise AssertionError(f"{what}: {kind} op events {n}")
+
+
 def _mr_config():
     """granite-moe at published widths and ``MR_LAYERS`` layers."""
     from repro_torch.configs import get_config
@@ -2820,6 +2957,7 @@ def _mr_step_timing(step, params, opt_state, batch,
             end = b
     coll = [e for e in prof.events() if e.device_type.name == "CPU"
             and MR_COLLECTIVE.search(e.name)]
+    op_events = collective_op_events(prof.events())
     by_kind: dict = {}
     for e in coll:   # "gloo:all_reduce" -> "all-reduce"
         kind = e.name.split(":", 1)[1].replace("_", "-")
@@ -2835,7 +2973,7 @@ def _mr_step_timing(step, params, opt_state, batch,
                                        for e in coll) / 1e3,
                 nccl_device_ms=nccl_dev / 1e3,
                 kinds=sorted({e.name for e in coll}),
-                collectives_by_kind=by_kind)
+                collectives_by_kind=by_kind, op_events=op_events)
 
 
 def _mr_kernel_times(h: int, hkv: int) -> dict:
@@ -3241,7 +3379,7 @@ def multi_rank_phase(card: str) -> dict:
     unsharded ``train`` (losses and grad norms within ``MR_LOSS_TOL``,
     each step's loss change within ``MR_DELTA_TOL`` of the unsharded
     change, the unsharded flash launches), then two ranks sharing the card over gloo on (1, 2)
-    (each rank's flash on its 8 q / 4 kv heads, 16 launches a step; one
+    (each rank's flash on its 8 q / 4 kv heads, 2 launches a layer a step; one
     layer's attention gathered against the whole layer's; sharded prefill
     of 4 x 512 and 7 decode steps against the unsharded steps, one decode
     launch a layer a step on each rank; a sharded checkpoint restored
@@ -3390,7 +3528,9 @@ def _mr_check_dry(one: dict, two: list) -> dict:
     is within ``MR_PEAK_TOL`` of torch.cuda.max_memory_allocated and its
     roofline time is at most the device's busy time; at (1, 2) each
     rank's collectives, by kind, are the backend's collectives
-    (``gloo:all_reduce``, ...) torch.profiler finds in one step.  Returns
+    (``gloo:all_reduce``, ...) torch.profiler finds in one step, and the
+    port's collective op events are those calls plus the calls made under
+    the remat's dispatch mode (``check_collective_events``).  Returns
     what was compared."""
     d, t = one["dry"], one["timing"]
     out = {"1x1": dict(
@@ -3413,12 +3553,15 @@ def _mr_check_dry(one: dict, two: list) -> dict:
     for r, res in enumerate(two):
         got, want = res["dry"]["collectives"], res["timing"][
             "collectives_by_kind"]
+        ops = res["timing"]["op_events"]
         out[f"1x2 rank {r}"] = dict(collectives=got, profiled=want,
+                                    op_events=ops,
                                     seconds=res["dry"]["seconds"])
         if got != want or not got:
             raise AssertionError(f"multi_rank dry run rank {r}: "
                                  f"collectives {got}, torch.profiler finds "
                                  f"{want}")
+        check_collective_events(ops, got, f"multi_rank rank {r}")
     return out
 
 
@@ -3512,11 +3655,16 @@ def main() -> int:
     phase("training")
     profiled_big_serve(card)
     phase("profiled single-card serve")
+    mamba = profiled_big_serve(card, MAMBA_PATH, MAMBA_PROFILED_LAYERS)
+    summary = mamba_summary(big, step_times, train_runs, mamba)
+    print(f"MAMBA path ({card}): {json.dumps(summary)}", flush=True)
+    phase("profiled MAMBA serve")
     ex = run_examples()
     print(f"examples on the card: {json.dumps(ex)}", flush=True)
     phase("examples")
     mr = multi_rank_phase(card)
     phase("multi_rank")
+    print(f"total: {time.monotonic() - start:.1f} s ({card})", flush=True)
 
     kernels = []
     for path, run in runs.items():

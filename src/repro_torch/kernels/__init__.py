@@ -18,10 +18,10 @@ def kernel_structures(cfg, batch: int, prompt_len: int, max_len: int, *,
     """The interiors of the kernels a serving path of ``cfg`` runs, at its
     shapes: with attention layers, flash prefill over the prompt (the
     layers' window) and flash decode at a mid-generation length (a window
-    layer's ring full); with mamba layers, the SSD scan of a prefill in
-    chunks of ``ssm_chunk`` (``serve``'s default).  An xLSTM stack runs
-    none of them."""
-    from repro_torch.configs.base import ATTN, HYBRID, SWA
+    layer's ring full); with mamba layers (HYBRID or MAMBA), the SSD scan
+    of a prefill in chunks of ``ssm_chunk`` (``serve``'s default).  An
+    xLSTM stack runs none of them."""
+    from repro_torch.configs.base import ATTN, HYBRID, MAMBA, SWA
     from repro_torch.kernels import decode_attention, flash_attention, \
         ssm_scan
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -38,7 +38,7 @@ def kernel_structures(cfg, batch: int, prompt_len: int, max_len: int, *,
                                           length=length)
         works["flash_attention"] = flash_attention.work
         works["decode_attention"] = decode_attention.work
-    if HYBRID in cfg.blocks:
+    if any(k in (HYBRID, MAMBA) for k in cfg.blocks):
         shapes["ssm_scan"] = dict(B=batch, S=prompt_len, nh=h, hd=d,
                                   st=cfg.ssm_state,
                                   chunk=min(ssm_chunk, prompt_len))

@@ -29,7 +29,13 @@ the collectives are one node each.  From it:
 Nothing touches a card: the run is abstract, as the reference's is.  A
 decode cell is traced at its last position (``pos = seq_len - 1``: every
 slot of the cache valid), where the reference's position is abstract.  A
-cell that fails writes ``status="error"`` with its trace.
+cell that fails writes ``status="error"`` with its trace.  With
+``save_hlo`` (the default; ``--no-hlo`` turns it off) each cell also
+writes its program text, the recorded graph's (``str(graph)``: one line
+an op, its arguments and result), gzipped beside its record as
+``<label>.hlo.gz``, where the reference writes its compiled HLO text;
+the record names it under ``hlo`` and its cost under ``hlo_s`` and
+``hlo_bytes``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-32b \\
@@ -40,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gzip
 import json
 import math
 import os
@@ -229,10 +236,12 @@ def trace_cell(cfg, shape, plan, opts: ModelOptions, *,
 
 def dry_run(cfg, shape, plan, *, label: str, mesh_desc: str,
             kv_seq_axis: Optional[str] = None, opts: ModelOptions =
-            ModelOptions(), n_microbatches: int = 1) -> dict:
+            ModelOptions(), n_microbatches: int = 1,
+            save_hlo: Optional[str] = None) -> dict:
     """One cell on ``plan``'s mesh (a live one: a fake world, or the
     ranks of a real run): the trace, its module, roofline and memory.
-    Returns the record's fields of an ``ok`` cell."""
+    Returns the record's fields of an ``ok`` cell.  ``save_hlo``: a
+    directory to write the program text into (``write_program``)."""
     from repro_torch.kernels import graph_structures
     t0 = time.monotonic()
     gm, specs = trace_cell(cfg, shape, plan, opts, kv_seq_axis=kv_seq_axis,
@@ -257,7 +266,7 @@ def dry_run(cfg, shape, plan, *, label: str, mesh_desc: str,
     coll: Dict[str, int] = {}
     for op in module.collective_ops():
         coll[op.opcode] = coll.get(op.opcode, 0) + 1
-    return dict(
+    rec = dict(
         status="ok", chips=chips,
         trace_s=t_trace, analysis_s=time.monotonic() - t0 - t_trace,
         graph_nodes=len(gm.graph.nodes), custom_calls=bound,
@@ -276,6 +285,22 @@ def dry_run(cfg, shape, plan, *, label: str, mesh_desc: str,
         cost={k: float(v) for k, v in cost.items()},
         roofline=report.row(),
         params=cfg.n_params(), active_params=cfg.n_active_params())
+    if save_hlo:
+        rec.update(write_program(gm, save_hlo, label))
+    return rec
+
+
+def write_program(gm, out_dir: str, label: str) -> dict:
+    """The recorded graph's text, gzipped, as ``<out_dir>/<label>.hlo.gz``.
+    Returns the record's fields: its path, the seconds it took and its
+    bytes on disk."""
+    t0 = time.monotonic()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{label}.hlo.gz")
+    with gzip.open(path, "wt") as f:
+        f.write(str(gm.graph))
+    return dict(hlo=path, hlo_s=time.monotonic() - t0,
+                hlo_bytes=os.path.getsize(path))
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
@@ -283,12 +308,14 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
              kv_seq_axis: Optional[str] = None,
              remat_policy: str = "dots_no_batch", moe_mode: str = "gather",
              loss_chunk: int = 512, n_microbatches: int = 1,
-             ssm_chunk: int = 256, slstm_block: int = 16, tag: str = "",
+             ssm_chunk: int = 256, slstm_block: int = 16,
+             save_hlo: bool = True, tag: str = "",
              cfg=None, shape=None, mesh_shape=None, axes=None) -> dict:
     """One cell on a fake production mesh ((16, 16) or (2, 16, 16));
     ``cfg``, ``shape``, ``mesh_shape`` and ``axes`` replace the
     configuration, the shape and the mesh (a reduced model at a small
-    size on a small fake world).  Writes and returns its record."""
+    size on a small fake world).  ``save_hlo``: write the cell's program
+    text beside its record.  Writes and returns its record."""
     cfg = cfg or get_config(arch)
     shape = shape or SHAPES[shape_name]
     prod_shape, prod_axes, mesh_desc = PRODUCTION[multi_pod]
@@ -314,7 +341,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
                                        moe_weight_mode=moe_mode)
             rec.update(dry_run(cfg, shape, plan, label=label,
                                mesh_desc=mesh_desc, kv_seq_axis=kv_seq_axis,
-                               opts=opts, n_microbatches=n_microbatches))
+                               opts=opts, n_microbatches=n_microbatches,
+                               save_hlo=out_dir if save_hlo else None))
     except Exception as e:  # a failure here is a bug in the system
         rec.update(status="error", error=str(e)[-2000:],
                    trace=traceback.format_exc()[-4000:])
@@ -335,6 +363,9 @@ def _report(rec: dict) -> str:
         extra = (f"trace {rec['trace_s']:.1f} s, peak "
                  f"{rec['memory']['peak_per_device']} bytes, "
                  f"{rec['roofline']['dominant']}")
+        if "hlo" in rec:
+            extra += (f", program text {rec['hlo_bytes']} bytes gzipped "
+                      f"in {rec['hlo_s']:.1f} s")
     return f"{rec['arch']} x {rec['shape']} x {rec['mesh']}: {status} {extra}"
 
 
@@ -357,6 +388,8 @@ def main(argv=None):
     ap.add_argument("--ssm-chunk", type=int, default=256)
     ap.add_argument("--slstm-block", type=int, default=16)
     ap.add_argument("--tag", default="")
+    ap.add_argument("--no-hlo", action="store_true",
+                    help="write no program text")
     ap.add_argument("--skip-existing", action="store_true",
                     help="skip cells whose record file already exists")
     ap.add_argument("--jobs", type=int, default=1,
@@ -374,7 +407,8 @@ def main(argv=None):
               kv_seq_axis=args.kv_seq_axis, remat_policy=args.remat_policy,
               moe_mode=args.moe_mode, loss_chunk=args.loss_chunk,
               n_microbatches=args.microbatch, ssm_chunk=args.ssm_chunk,
-              slstm_block=args.slstm_block, tag=args.tag)
+              slstm_block=args.slstm_block, save_hlo=not args.no_hlo,
+              tag=args.tag)
     cells = []
     for arch in archs:
         for shape in shapes:

@@ -1,11 +1,12 @@
 """Model assembly for training (``forward``, ``lm_loss``, ``loss_fn``) and
 serving (``prefill``, ``decode_step``): embedding, a stack of blocks,
-final norm and unembedding.  Ported block kinds: ATTN (full causal GQA
-attention), SWA (sliding-window attention over a ring cache), HYBRID
-(Hymba: sliding-window attention and a mamba mixer in parallel on the
-same input, mixed by ``beta``), each followed by a dense SwiGLU or (ATTN
-and SWA with ``use_moe``) a mixture-of-experts FFN, and the xLSTM blocks
-MLSTM and SLSTM, which carry their own projections.
+final norm and unembedding.  Block kinds, every one of the JAX
+package's: ATTN (full causal GQA attention), SWA (sliding-window
+attention over a ring cache), HYBRID (Hymba: sliding-window attention
+and a mamba mixer in parallel on the same input, mixed by ``beta``),
+each followed by a dense SwiGLU or (ATTN and SWA with ``use_moe``) a
+mixture-of-experts FFN; MAMBA (the mamba mixer alone) and the xLSTM
+blocks MLSTM and SLSTM, which carry their own projections and no FFN.
 
 Layers are grouped into *periods* (one repetition of the block pattern)
 and parameters are stacked over periods, keeping the JAX package's
@@ -13,8 +14,7 @@ parameter tree (``{"embed", "unembed", "final_norm", "layers": {"e0":
 ...}}``) so JAX-initialised weights load by key.  Where JAX scans over
 periods, this runs a Python loop.  In training each period is one
 ``torch.utils.checkpoint`` region (``ModelOptions.remat``), as the JAX
-package's remat of the scan body.  MAMBA blocks raise
-``NotImplementedError``: no configuration has one.
+package's remat of the scan body.
 
 On a device mesh (``mesh_args``, a ``MeshCtx``: the sharded steps of
 ``launch.steps`` build it) every function here runs on one rank's local
@@ -43,8 +43,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.configs.base import (ATTN, HYBRID, MLSTM, SLSTM, SWA,
-                                      ModelConfig)
+from repro_torch.configs.base import (ATTN, HYBRID, MAMBA, MLSTM, SLSTM,
+                                      SWA, ModelConfig)
 from repro_torch.distributed import shardmap_compat as smc
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
@@ -179,11 +179,10 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _check_entry(spec: EntrySpec) -> None:
-    if spec.kind not in (ATTN, SWA, HYBRID, MLSTM, SLSTM):
-        raise NotImplementedError(
-            f"block kind {spec.kind!r}: only ATTN, SWA, HYBRID, MLSTM and "
-            f"SLSTM blocks are ported")
+def _init_mamba(gen, cfg: ModelConfig, dtype, n: int) -> dict:
+    return ssm_mod.init_ssm_params(gen, cfg.d_model, cfg.n_heads,
+                                   cfg.head_dim, cfg.ssm_state, dtype,
+                                   lead=(n,))
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +196,6 @@ def _init_ffn(gen, cfg: ModelConfig, dtype, n: int) -> dict:
 
 
 def _init_entry(gen, spec: EntrySpec, cfg: ModelConfig, dtype, n: int):
-    _check_entry(spec)
     d = cfg.d_model
     ones = dict(dtype=dtype, device=gen.device)
     p: Dict[str, Any] = {"ln1": torch.ones((n, d), **ones)}
@@ -209,11 +207,15 @@ def _init_entry(gen, spec: EntrySpec, cfg: ModelConfig, dtype, n: int):
         p["slstm"] = xlstm_mod.init_slstm_params(gen, d, cfg.n_heads, dtype,
                                                  lead=(n,))
         return p
+    if spec.kind == MAMBA:
+        # the mixer alone: no FFN, even where ``use_moe`` marks the layer
+        p["mamba"] = _init_mamba(gen, cfg, dtype, n)
+        return p
+    if spec.kind not in (ATTN, SWA, HYBRID):
+        raise ValueError(spec.kind)
     p["attn"] = attn_mod.init_attn_params(gen, cfg, dtype, lead=(n,))
     if spec.kind == HYBRID:
-        p["mamba"] = ssm_mod.init_ssm_params(
-            gen, d, cfg.n_heads, cfg.head_dim, cfg.ssm_state, dtype,
-            lead=(n,))
+        p["mamba"] = _init_mamba(gen, cfg, dtype, n)
         p["beta"] = torch.ones((n, 2), dtype=torch.float32,
                                device=gen.device)
     p["ln2"] = torch.ones((n, d), **ones)
@@ -253,10 +255,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda"):
     """Zero cache tree, stacked over periods: {'e0': {...}, ...}.
     Attention layers hold ``k``/``v``; window layers (SWA, HYBRID) a ring
-    of min(window, max_len) slots.  HYBRID adds the mamba state ``ssm``
-    (fp32) and the conv carry ``conv`` (model dtype); MLSTM the matrix
-    state ``H`` (fp32, the normaliser as its last value column) and the
-    stabiliser ``m`` at -1e30; SLSTM ``c``, ``n``, ``h`` (fp32 zeros) and
+    of min(window, max_len) slots.  HYBRID and MAMBA hold the mamba state
+    ``ssm`` (fp32) and the conv carry ``conv`` (model dtype); MLSTM the
+    matrix state ``H`` (fp32, the normaliser as its last value column) and
+    the stabiliser ``m`` at -1e30; SLSTM ``c``, ``n``, ``h`` (fp32 zeros) and
     ``m`` at -1e30, as in the JAX package."""
     dtype = model_dtype(cfg)
     entries, n_periods = layer_plan(cfg)
@@ -264,7 +266,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     f32 = dict(dtype=torch.float32, device=device)
     cache = {}
     for i, spec in enumerate(entries):
-        _check_entry(spec)
         c = {}
         if spec.kind in (ATTN, SWA, HYBRID):
             smax = min(cfg.window, max_len) if spec.kind in (SWA, HYBRID) \
@@ -272,7 +273,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             k = torch.zeros((n_periods, batch, smax, cfg.n_kv_heads,
                              cfg.head_dim), dtype=dtype, device=device)
             c.update(k=k, v=torch.zeros_like(k))
-        if spec.kind == HYBRID:
+        if spec.kind in (HYBRID, MAMBA):
             c["ssm"] = torch.zeros((n_periods, batch, cfg.n_heads,
                                     cfg.head_dim, cfg.ssm_state), **f32)
             c["conv"] = torch.zeros((n_periods, batch, ssm_mod.CONV_W - 1,
@@ -352,13 +353,12 @@ def _write_states(cache, new: dict):
 def _apply_entry(p, spec: EntrySpec, x, positions, cfg, opts, mode: str,
                  cache=None, cache_pos=None, ctx=None, specs=None, seq=None):
     """One block.  Returns (x, new_cache, aux): aux is the MoE aux loss
-    (zero elsewhere: 0.0 for the xLSTM blocks, which have no FFN); in
-    training new_cache is None.  In decode every state (k/v,
+    (zero elsewhere: 0.0 for the MAMBA and xLSTM blocks, which have no
+    FFN); in training new_cache is None.  In decode every state (k/v,
     ``ssm``/``conv``, the xLSTM states) is written into ``cache`` in
     place.  On a mesh ``p`` is the period's weights in their compute
     layout and ``specs`` their specs (``_period_params``); ``seq``: the
     decode cache's k/v are this rank's slots of a split sequence."""
-    _check_entry(spec)
     h = rms_norm(x, p["ln1"])
     decode = mode == "decode"
     train = mode == "train"
@@ -377,27 +377,41 @@ def _apply_entry(p, spec: EntrySpec, x, positions, cfg, opts, mode: str,
         if train:
             new = None
         return x + y, _write_states(cache, new) if decode else new, 0.0
+    if spec.kind == MAMBA:
+        y, new = _mamba(p["mamba"], h, cfg, opts, cache if decode else None)
+        if train:
+            new = None
+        return x + y, _write_states(cache, new) if decode else new, 0.0
     window = cfg.window if spec.kind in (SWA, HYBRID) else 0
     tp = _tp(specs["attn"], ctx, "wq", "wk") if specs else None
     y, new_cache = _attention(p["attn"], h, positions, cfg, window, opts,
                               mode, cache, cache_pos, tp, seq)
     if spec.kind == HYBRID:
-        ssm_state = conv_state = None
+        ym, new = _mamba(p["mamba"], h, cfg, opts, cache if decode else None)
         if decode:
-            ssm_state, conv_state = cache["ssm"], cache["conv"]
-        ym, (st, cv) = ssm_mod.mamba_forward(
-            p["mamba"], h, n_heads=cfg.n_heads, head_dim=cfg.head_dim,
-            state=cfg.ssm_state, chunk=opts.ssm_chunk, ssm_state=ssm_state,
-            conv_state=conv_state, use_kernel=opts.use_flash_kernel)
-        if decode:
-            _write_states(cache, {"ssm": st, "conv": cv})
+            _write_states(cache, new)
         elif not train:
-            new_cache.update(ssm=st, conv=cv)
+            new_cache.update(new)
         beta = p["beta"].to(x.dtype)
         y = 0.5 * (beta[0] * y + beta[1] * ym)
     x = x + y
     y2, aux = _apply_ffn(p, rms_norm(x, p["ln2"]), cfg, ctx, specs)
     return x + y2, new_cache, aux
+
+
+def _mamba(mp, h, cfg, opts, cache=None):
+    """The mamba mixer of a HYBRID or MAMBA block: the SSD scan (the
+    kernel, ``opts.use_flash_kernel``) from zero states in prefill and
+    training, the O(1) recurrence from the cache's ``ssm``/``conv`` in
+    decode.  Returns (y, {"ssm", "conv"}: the new states)."""
+    ssm_state = conv_state = None
+    if cache is not None:
+        ssm_state, conv_state = cache["ssm"], cache["conv"]
+    y, (st, cv) = ssm_mod.mamba_forward(
+        mp, h, n_heads=cfg.n_heads, head_dim=cfg.head_dim,
+        state=cfg.ssm_state, chunk=opts.ssm_chunk, ssm_state=ssm_state,
+        conv_state=conv_state, use_kernel=opts.use_flash_kernel)
+    return y, {"ssm": st, "conv": cv}
 
 
 def _attention(ap, h, positions, cfg, window, opts, mode, cache, cache_pos,

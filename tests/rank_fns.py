@@ -10,6 +10,7 @@ import os
 import numpy as np
 import torch
 
+import torch_ranks
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.convert import params_from_jax
@@ -181,7 +182,7 @@ def train_cases(rank, world, out, ref, cases):
     writes the history, the final params and AdamW state (gathered)."""
     for case in cases:
         name, shape, strategy, mode, gc = case
-        cfg = get_config(name).reduced()
+        cfg = torch_ranks.reduced_config(get_config, name)
         mesh = M.make_mesh(tuple(shape), ("data", "model"), "cpu")
         plan = S.make_plan(mesh, strategy=strategy, moe_weight_mode=mode)
         npz = np.load(os.path.join(ref, f"{name}_init.npz"))
@@ -342,7 +343,7 @@ def ckpt_cases(rank, world, out, ref):
 def seq_config(name: str, window: int):
     """A reduced configuration; ``window`` > 0 replaces its window (a
     ring shorter than the prompt)."""
-    cfg = get_config(name).reduced()
+    cfg = torch_ranks.reduced_config(get_config, name)
     return dataclasses.replace(cfg, window=window) if window else cfg
 
 
@@ -428,6 +429,53 @@ def collective_cases(rank, world, out, seq, batch):
     if rank == 0:
         with open(os.path.join(out, "eager_collectives.json"), "w") as f:
             json.dump(log.calls, f)
+
+
+# c10d's op of each of the port's collective ops on gloo
+C10D_KINDS = {"c10d::allreduce_": "all-reduce",
+              "c10d::_allgather_base_": "all-gather",
+              "c10d::_reduce_scatter_base_": "reduce-scatter"}
+
+
+def collective_event_cases(rank, world, out):
+    """One donated sharded train step of reduced granite on (1, 2) over
+    gloo, after a warm one, under torch.profiler: the port's collective
+    op events (``chip_smoke.collective_op_events``), c10d's collective
+    ops and the dry run's collectives of the same step; rank 0 writes
+    them."""
+    import json
+    import sys
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import dryrun
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    mesh = M.make_mesh((1, world), ("data", "model"), "cpu")
+    plan = S.make_plan(mesh, strategy="tp")
+    opts = T.ModelOptions(**CHUNKS)
+    full = T.init_params(torch.Generator().manual_seed(0), cfg)
+    params = S.shard_tree(full, S.param_shardings(full, cfg, plan))
+    opt = adamw.init(params)
+    step = steps.make_train_step(cfg, opts, adamw.OptConfig(), donate=True,
+                                 plan=plan)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (4, 32), generator=gen)
+    data = {"tokens": tokens, "labels": tokens.int()}
+    step(params, opt, data)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(params, opt, data)
+    events = prof.events()
+    c10d: dict = {}
+    for e in events:
+        if e.name in C10D_KINDS:
+            c10d[C10D_KINDS[e.name]] = c10d.get(C10D_KINDS[e.name], 0) + 1
+    rec = dryrun.dry_run(cfg, ShapeConfig("t", 32, 4, "train"), plan,
+                         label="granite_1x2", mesh_desc="1x2", opts=opts)
+    if rank == 0:
+        with open(os.path.join(out, "collective_events.json"), "w") as f:
+            json.dump(dict(ops=chip_smoke.collective_op_events(events),
+                           c10d=c10d, dry=rec["collectives"]), f)
 
 
 def profiled_train(rank, world, out):

@@ -22,7 +22,7 @@ from repro.launch.serve import _grow_cache as jax_grow
 from repro.launch.serve import serve as jax_serve
 from repro.models import transformer as JT
 from repro_torch.configs import get_config, list_configs
-from repro_torch.configs.base import SHAPES
+from repro_torch.configs.base import MAMBA, SHAPES
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as serve_mod
@@ -202,14 +202,21 @@ def _port_leaves(tree):
             for path, t in leaves_with_paths(tree)]
 
 
-@pytest.mark.parametrize("name", sorted(list_configs()))
+@pytest.mark.parametrize("name", sorted(list_configs())
+                         + ["hymba-1.5b+mamba"])
 def test_specs_match_the_reference_input_specs(name):
     """Every input of the four shapes, tree, shapes and dtypes, as the
     reference's ``input_specs`` with no plan gives them, from the meta
     device (nothing allocated).  With a plan the same stand-ins come back
     with their shardings beside them (their specs are held to the
-    reference's in tests/test_torch_mesh.py)."""
-    cfg, jcfg = get_config(name), jax_get_config(name)
+    reference's in tests/test_torch_mesh.py).  ``<name>+mamba``: the
+    configuration's widths with MAMBA blocks alone (no configuration has
+    one), its cache the mamba states."""
+    base, _, mamba = name.partition("+")
+    cfg, jcfg = get_config(base), jax_get_config(base)
+    if mamba:
+        cfg = dataclasses.replace(cfg, block_pattern=(MAMBA,))
+        jcfg = dataclasses.replace(jcfg, block_pattern=(MAMBA,))
     j_params = jax_specs.params_struct(jcfg)
     t_params = specs.params_struct(cfg)
     assert all(t.is_meta for _, t in leaves_with_paths(t_params))

@@ -15,7 +15,15 @@
   count and operand bytes by kind, are what an eager gloo run of the
   same step on 4 CPU ranks logs.
 - A profiled train step on two ranks writes one measurement directory a
-  rank, and ``aggregate`` merges them.
+  rank, and ``aggregate`` merges them; the port's collective op events
+  of a step on two gloo ranks are its collective calls plus the entries
+  of the remat's dispatch mode around some of them.
+- MAMBA blocks (hymba's reduced widths, ``block_pattern`` (MAMBA,)):
+  every kind of cell ends ``ok`` on (2, 2), and on a world of 1 the
+  recorded train step's FLOPs are ``FlopCounterMode``'s over the same
+  step run.
+- Each cell writes its program text beside its record unless asked not
+  to (``save_hlo``, ``--no-hlo``).
 
 A dry run joins a fake process group, and a pytest worker may hold a
 real one already, so each runs in a subprocess."""
@@ -128,17 +136,20 @@ def test_argument_bytes_are_the_references(name, mesh):
 
 
 def run_dry(tmp_path, arch, kind, mesh_shape, seq=64, batch=8,
-            **kw) -> dict:
-    """One reduced cell in a subprocess (a fake world of its own)."""
+            blocks=None, **kw) -> dict:
+    """One reduced cell in a subprocess (a fake world of its own);
+    ``blocks`` replaces the block pattern."""
     out = str(tmp_path / f"{arch}_{kind}_{'x'.join(map(str, mesh_shape))}")
     axes = ("data", "model") if len(mesh_shape) == 2 else \
         ("pod", "data", "model")
     script = (
-        "import json, sys\n"
+        "import dataclasses, json, sys\n"
         "from repro_torch.configs import get_config\n"
         "from repro_torch.configs.base import ShapeConfig\n"
         "from repro_torch.launch import dryrun as D\n"
         f"cfg = get_config({arch!r}).reduced()\n"
+        f"if {blocks!r}:\n"
+        f"    cfg = dataclasses.replace(cfg, block_pattern={blocks!r})\n"
         f"shape = ShapeConfig('t', {seq}, {batch}, {kind!r})\n"
         f"rec = D.run_cell({arch!r}, 't', {len(mesh_shape) == 3}, {out!r},"
         f" cfg=cfg, shape=shape, mesh_shape={tuple(mesh_shape)!r},"
@@ -202,6 +213,137 @@ def test_collectives_are_what_an_eager_gloo_run_logs(tmp_path):
     assert row["coll_operand_bytes_per_dev"] == sum(
         b for _, b in eager.values())
     assert len(eager) >= 3
+
+
+def test_collective_op_events_are_the_calls_and_the_mode_entries(tmp_path):
+    """Reduced granite's sharded train step on (1, 2) over gloo under
+    torch.profiler: the port's collective ops that run the collective are
+    c10d's collective calls and the dry run's collectives, kind by kind;
+    every other op event is the entry of the remat's dispatch mode around
+    one of them (``chip_smoke.collective_op_events``), so the all-reduce
+    op events, more than the calls, are the calls plus those under the
+    mode.  ``chip_smoke``'s multi-rank check holds the card to the same
+    rule."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    torch_ranks.run_ranks("collective_event_cases", 2, tmp_path, timeout=180,
+                          out=str(tmp_path))
+    with open(tmp_path / "collective_events.json") as f:
+        got = json.load(f)
+    assert got["dry"] == got["c10d"] and "all-reduce" in got["dry"]
+    chip_smoke.check_collective_events(got["ops"], got["dry"], "gloo")
+    ar = got["ops"]["all-reduce"]
+    assert ar["events"] > ar["calls"] and ar["calls_under_mode"] > 0
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_mamba_cells_run_on_a_fake_world_of_4(tmp_path, kind):
+    """A stack of MAMBA blocks (2 layers) records ``ok`` on (2, 2): the
+    SSD scan a custom-call a layer in prefill and two in train (the
+    remat's recompute), none in decode (the recurrence), no attention
+    kernel, collectives in the graph, a roofline."""
+    rec = run_dry(tmp_path, "hymba-1.5b", kind, (2, 2), blocks=("mamba",))
+    assert rec["status"] == "ok", rec.get("trace", rec)
+    want = {"train": {"ssm_scan": 4}, "prefill": {"ssm_scan": 2},
+            "decode": {}}[kind]
+    assert rec["kernels"] == want
+    assert sum(rec["collectives"].values()) > 0
+    row = rec["roofline"]
+    assert row["step_time_s"] > 0 and rec["cost"]["flops"] > 0
+
+
+FLOPS_SCRIPT = r"""
+import dataclasses, json
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+from repro_torch.configs import get_config
+from repro_torch.configs.base import MAMBA, ShapeConfig
+from repro_torch.distributed import sharding as S
+from repro_torch.launch import dryrun as D, mesh as M, steps
+from repro_torch.models import transformer as T
+from repro_torch.optim import adamw
+torch.set_num_threads(1)
+cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(),
+                          block_pattern=(MAMBA,))
+opts = T.ModelOptions(q_chunk=16, kv_chunk=16, ssm_chunk=16, loss_chunk=32)
+with D.fake_world(1):
+    mesh = M.make_mesh((1, 1), ("data", "model"), "cpu")
+    plan = S.make_plan(mesh, strategy="tp")
+    rec = D.dry_run(cfg, ShapeConfig("t", 64, 4, "train"), plan,
+                    label="mamba", mesh_desc="1x1", opts=opts)
+    full = T.init_params(torch.Generator().manual_seed(0), cfg)
+    params = S.shard_tree(full, S.param_shardings(full, cfg, plan))
+    step = steps.make_train_step(cfg, opts, adamw.OptConfig(), donate=True,
+                                 plan=plan)
+    toks = torch.randint(0, cfg.vocab, (4, 64),
+                         generator=torch.Generator().manual_seed(1))
+    with FlopCounterMode(display=False) as counter:
+        step(params, adamw.init(params), {"tokens": toks,
+                                          "labels": toks.int()})
+print(json.dumps(dict(status=rec["status"], kernels=rec["kernels"],
+                      flops=rec["cost"]["flops"],
+                      counted=counter.get_total_flops())))
+"""
+
+
+def test_mamba_dry_run_flops_are_flop_counter_modes():
+    """The recorded train step of MAMBA blocks (2 layers, 4 x 64) on a
+    world of 1: its FLOPs (the products and the SSD scan's ``work``, two
+    calls a layer with the remat's recompute) equal ``FlopCounterMode``'s
+    over the same step run eagerly, to 1e-9, as chip_smoke holds the card
+    (``MR_FLOPS_TOL``)."""
+    proc = subprocess.run([sys.executable, "-c", FLOPS_SCRIPT], env=ENV,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert rec["status"] == "ok" and rec["kernels"] == {"ssm_scan": 4}
+    assert abs(rec["flops"] - rec["counted"]) <= 1e-9 * rec["counted"]
+
+
+@pytest.mark.parametrize("save", [True, False], ids=["default", "no-hlo"])
+def test_program_text_beside_the_record(tmp_path, save):
+    """By default a cell writes its recorded graph's text gzipped beside
+    its record (``hlo``: the path; ``hlo_s``, ``hlo_bytes``: its cost), one
+    line a node; ``save_hlo=False`` (``--no-hlo``) writes none."""
+    import gzip
+    rec = run_dry(tmp_path, "qwen2-1.5b", "decode", (2, 2), save_hlo=save)
+    assert rec["status"] == "ok", rec.get("trace", rec)
+    out = tmp_path / "qwen2-1.5b_decode_2x2"
+    written = sorted(p.name for p in out.iterdir())
+    if not save:
+        assert "hlo" not in rec and not any(".hlo" in n for n in written)
+        return
+    assert written == ["qwen2-1.5b_t_2x2.hlo.gz", "qwen2-1.5b_t_2x2.json"]
+    assert rec["hlo"] == str(out / "qwen2-1.5b_t_2x2.hlo.gz")
+    assert rec["hlo_bytes"] == os.path.getsize(rec["hlo"]) > 0
+    assert rec["hlo_s"] >= 0
+    with gzip.open(rec["hlo"], "rt") as f:
+        text = f.read()
+    assert len(text.splitlines()) >= rec["graph_nodes"]
+    assert "repro_torch.all_reduce" in text or "all_reduce" in text
+
+
+@pytest.mark.parametrize("flag", [[], ["--no-hlo"]], ids=["default",
+                                                          "no-hlo"])
+def test_cli_passes_save_hlo(flag, monkeypatch, tmp_path):
+    """``python -m repro_torch.launch.dryrun`` writes each cell's program
+    text unless given ``--no-hlo``."""
+    seen = []
+
+    def cell(arch, shape, mp, out, **kw):
+        seen.append(kw["save_hlo"])
+        return {"arch": arch, "shape": shape, "mesh": "m",
+                "status": "skipped", "reason": ""}
+    monkeypatch.setattr(D, "run_cell", cell)
+    with pytest.raises(SystemExit) as done:
+        D.main(["--arch", "qwen2-1.5b", "--shape", "train_4k",
+                "--out", str(tmp_path)] + flag)
+    assert done.value.code == 0 and seen == [not flag]
 
 
 def test_profiled_train_on_two_ranks_writes_a_directory_a_rank(tmp_path):

@@ -13,7 +13,6 @@ from repro.configs import get_config as jax_get_config
 from repro.launch.serve import serve as jax_serve
 from repro.models import transformer as JT
 from repro_torch.configs import get_config
-from repro_torch.configs.base import MAMBA
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as serve_mod
@@ -153,13 +152,4 @@ def test_init_cache_and_grow_match_jax():
     assert tuple(grown["e0"]["k"].shape) == (2, 2, 12, 2, 16)
     assert float(grown["e0"]["k"][:, :, 8:].abs().sum()) == 0.0
     assert float(grown["e0"]["v"][:, :, :8].sum()) == 2 * 2 * 8 * 2 * 16
-
-
-def test_unported_paths_raise():
-    """Still unported: MAMBA blocks (no configuration has one; the
-    expert-parallel MoE path is ported, tests/test_torch_mesh.py)."""
-    cfg, _ = configs("float32")
-    gen = torch.Generator()
-    with pytest.raises(NotImplementedError):
-        T.init_params(gen, dataclasses.replace(cfg, block_pattern=(MAMBA,)))
 

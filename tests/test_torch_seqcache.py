@@ -15,7 +15,12 @@ qwen2 with ``kv_seq_axis="model"`` on (1, 2) and (2, 2), where the new
 token's kv heads are gathered before its slot is written; reduced hymba
 with an 8-slot window, a ring shorter than the prompt, on (1, 4) and
 with ``kv_seq_axis`` on (2, 2) and (1, 2) (its mamba states split over
-``model`` too, gathered for each step).  At the first decode step of
+``model`` too, gathered for each step); reduced hymba's widths with a
+MAMBA block and an ATTN block (``hymba-1.5b+mamba-attn``, the block
+pattern replaced on both sides, ``torch_ranks.reduced_config``) with
+``kv_seq_axis`` on (2, 2): the ATTN
+layer's k/v split over their sequence, the MAMBA layer's states whole in
+the step.  At the first decode step of
 (1, 4) the last rank holds no valid slot: its kernel call has length
 0."""
 import dataclasses
@@ -40,7 +45,8 @@ CHUNKS = dict(q_chunk=16, kv_chunk=16, ssm_chunk=16, loss_chunk=32)
 FOUR = [("qwen2-1.5b", 0, (1, 4), None),
         ("qwen2-1.5b", 0, (2, 2), "model"),
         ("hymba-1.5b", 8, (1, 4), None),
-        ("hymba-1.5b", 8, (2, 2), "model")]
+        ("hymba-1.5b", 8, (2, 2), "model"),
+        ("hymba-1.5b+mamba-attn", 0, (2, 2), "model")]
 TWO = [("qwen2-1.5b", 0, (1, 2), "model"),
        ("hymba-1.5b", 8, (1, 2), "model")]
 
@@ -51,14 +57,15 @@ def key(case) -> str:
 
 
 def jax_config(name, window):
-    cfg = jax_get_config(name).reduced()
+    cfg = torch_ranks.reduced_config(jax_get_config, name)
     return dataclasses.replace(cfg, window=window) if window else cfg
 
 
 def jax_params(name):
     """The JAX package's seed-0 params of reduced ``name``, wq and wk of
     the attention tempered by 1/8 (as the sharded train tests')."""
-    p = JT.init_params(jax.random.PRNGKey(0), jax_get_config(name).reduced())
+    p = JT.init_params(jax.random.PRNGKey(0),
+                       torch_ranks.reduced_config(jax_get_config, name))
 
     def temper(path, v):
         keys = [str(k.key) for k in path]
@@ -93,7 +100,7 @@ def jax_logits(name, window, params, toks, nxt):
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("seqcache")
-    params = {n: jax_params(n) for n in ("qwen2-1.5b", "hymba-1.5b")}
+    params = {n: jax_params(n) for n in {c[0] for c in FOUR + TWO}}
     for n, p in params.items():
         save_init(p, tmp / f"{n}_init.npz")
     rng = np.random.default_rng(3)

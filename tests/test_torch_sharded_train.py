@@ -5,8 +5,10 @@ Training: 3 steps of ``train(mesh=..., strategy=...)`` of reduced
 granite-moe (a (2, 2) mesh: ``tp`` with the MoE weights gathered, ``tp``
 with them stationary, and ``fsdp`` with the int8 gradient wire model), reduced qwen2 on (1, 4) (its two kv heads do not divide over
 model = 4: the guard keeps ``wk``/``wv`` whole and the q heads are
-gathered before the op) and reduced hymba on (2, 2) (the mamba mixer's
-leaves gathered whole, its SSD scan through the plain version), from the
+gathered before the op), reduced hymba on (2, 2) (the mamba mixer's
+leaves gathered whole, its SSD scan through the plain version) and the
+same widths with MAMBA blocks alone (``hymba-1.5b+mamba``: the block
+pattern replaced on both sides, ``torch_ranks.reduced_config``), from the
 JAX package's tempered seed-0 weights through ``convert`` and the same
 synthetic batches, against the JAX package's ``train(mesh=...)`` on 4
 host devices.  Serving: granite's sharded prefill and decode steps on
@@ -31,6 +33,7 @@ CASES = [
     ("granite-moe-1b-a400m", (2, 2), "fsdp", "gather", True),
     ("qwen2-1.5b", (1, 4), "tp", "gather", False),
     ("hymba-1.5b", (2, 2), "tp", "gather", False),
+    ("hymba-1.5b+mamba", (2, 2), "tp", "gather", False),
 ]
 KEYS = {c: f"{c[0]}_{c[1][0]}x{c[1][1]}_{c[2]}_{c[3]}_{int(c[4])}"
         for c in CASES}
@@ -38,6 +41,7 @@ KEYS = {c: f"{c[0]}_{c[1][0]}x{c[1][1]}_{c[2]}_{c[3]}_{int(c[4])}"
 JAX_SIDE = r"""
 import functools, os
 import numpy as np, jax, jax.numpy as jnp
+import torch_ranks
 from repro.configs import get_config
 from repro.configs.base import ShapeConfig
 from repro.checkpoint import CheckpointManager
@@ -72,7 +76,7 @@ def load(name):
 
 
 for name, shape, strategy, mode, gc, key in {cases}:
-    cfg = get_config(name).reduced()
+    cfg = torch_ranks.reduced_config(get_config, name)
     init = load(name)
     T_init = T.init_params
     T.init_params = lambda k, c, init=init: init
@@ -120,7 +124,8 @@ def init_npz(name, dest):
     """The JAX package's seed-0 params of reduced ``name``, wq and wk of
     the attention tempered by 1/8 (as tests/test_torch_train.py's
     ``temper``), as ``init/...`` keys: both sides start from them."""
-    p = JT.init_params(jax.random.PRNGKey(0), jax_get_config(name).reduced())
+    p = JT.init_params(jax.random.PRNGKey(0),
+                       torch_ranks.reduced_config(jax_get_config, name))
     flat, _ = jax.tree_util.tree_flatten_with_path(p)
     out = {}
     for path, v in flat:

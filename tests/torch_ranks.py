@@ -11,6 +11,7 @@ in a subprocess, as the JAX package's own multi-device tests do.
 Run as a script, it is one rank: ``torch_ranks.py FN RANK WORLD STORE
 KWARGS_JSON``.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -19,6 +20,21 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+# "<config>+<pattern>" names a reduced configuration with its block
+# pattern replaced (no configuration of either package has a MAMBA
+# block); the block kinds are the strings both packages' configs use
+PATTERNS = {"mamba": ("mamba",), "mamba-attn": ("mamba", "attn")}
+
+
+def reduced_config(get_config, name: str):
+    """The reduced config of ``name`` from ``get_config`` (either
+    package's), ``+<pattern>`` applied."""
+    base, _, pattern = name.partition("+")
+    cfg = get_config(base).reduced()
+    return dataclasses.replace(cfg, block_pattern=PATTERNS[pattern]) \
+        if pattern else cfg
 
 
 def _env(**extra):
