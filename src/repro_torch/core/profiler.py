@@ -41,8 +41,9 @@ import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
-from repro_torch.core import sampling
+from repro_torch.core import sampling, scope
 from repro_torch.core.cct import (CCT, CCTNode, Frame, HOST, PLACEHOLDER,
                             unwind_host_stack)
 from repro_torch.core.channels import RingSet
@@ -67,11 +68,14 @@ class _ThreadState:
     when the app threads are quiescent and the shadow grafts into
     ``cct``.  The counter tuples are published with a single reference
     store, so any observer reads a consistent snapshot (the
-    ``overhead_counters`` race fix)."""
+    ``overhead_counters`` race fix).  ``open`` (the app thread's, one
+    store at each dispatch's entry and exit) is read by the monitor
+    alone, to tell its work between dispatches from its work during
+    one."""
 
     __slots__ = ("cct", "trace", "trace_chunks", "ring", "seq", "index",
                  "counts", "mon_counts", "ctx_cache", "ph_cache",
-                 "app_node", "shadow", "shadow_cct", "snode_cache")
+                 "app_node", "shadow", "shadow_cct", "snode_cache", "open")
 
     def __init__(self, cct: CCT, ring, index: int):
         self.cct = cct
@@ -81,7 +85,9 @@ class _ThreadState:
         self.seq = 0                     # per-thread dispatch sequence
         self.index = index               # stable thread index (bindable)
         self.counts = (0, 0, 0)          # (tool_ns, app_ns, dispatches)
-        self.mon_counts = (0, 0, 0)      # (kept, dropped, deferred_ns)
+        # (kept, dropped, deferred_ns, deferred_between_ns)
+        self.mon_counts = (0, 0, 0, 0)
+        self.open = False                # a dispatch is open on the thread
         self.ctx_cache: Dict[tuple, CCTNode] = {}   # unwind key -> ctx
         self.ph_cache: Dict[tuple, CCTNode] = {}    # placeholder memo
         self.app_node: Optional[CCTNode] = None     # unwind-off context
@@ -168,6 +174,11 @@ class Profiler:
         self._stream_nodes: Dict[int, dict] = {}   # tracer node memo
         self._stream_lock = threading.Lock()
         self._started = False
+        # (time.monotonic_ns(), time.time_ns()) at start(): puts the trace
+        # rows of the default clock on torch.profiler's timeline
+        # (``trace_rows_us``); ``clock`` is not called for it, so a
+        # scripted clock ticks for the dispatches alone
+        self.clock_anchor: Optional[tuple] = None
         self._host = socket.gethostname()
         self._monitor.trace_sink = self._stream_profile_sink
 
@@ -232,6 +243,9 @@ class Profiler:
 
     def start(self):
         if not self._started:
+            w0 = time.time_ns()
+            m = time.monotonic_ns()
+            self.clock_anchor = (m, (w0 + time.time_ns()) // 2)
             self._monitor.start()
             self._started = True
         return self
@@ -411,24 +425,29 @@ class Profiler:
         PC-sample kept/dropped tally under the current throttle, and
         ``deferred_ns`` — monitor-thread time spent on the deferred
         draw/attribution (off the dispatch path, reported for
-        visibility).  Every per-thread contribution is published as one
+        visibility), and ``deferred_between_ns``, the part of it spent on
+        a thread's records while that thread had no dispatch open: the
+        monitor's work that competes for the GIL with the host code
+        between two dispatches (``_on_records`` states the rule).  Every
+        per-thread contribution is published as one
         tuple store per update, so a snapshot taken mid-dispatch is
         always internally consistent (no tool_ns-without-dispatches
         torn reads); kept/dropped lag the dispatch counters by at most
         one monitor drain."""
-        tool = app = n = kept = dropped = deferred = 0
+        tool = app = n = kept = dropped = deferred = between = 0
         for st in list(self._threads.values()):
             t, a, d = st.counts
-            k, dr, df = st.mon_counts
+            k, dr, df, bt = st.mon_counts
             tool += t
             app += a
             n += d
             kept += k
             dropped += dr
             deferred += df
+            between += bt
         return {"tool_ns": tool, "app_ns": app, "dispatches": n,
                 "samples_kept": kept, "samples_dropped": dropped,
-                "deferred_ns": deferred}
+                "deferred_ns": deferred, "deferred_between_ns": between}
 
     def dispatch(self, kind: str, name: str, *, stream: int = 0,
                  module_id: Optional[int] = None, nbytes: int = 0,
@@ -467,9 +486,16 @@ class Profiler:
         drain-order invariant), deferred counter reads, attribution
         into the thread's shadow CCT, and one buffered trace chunk.
         Returns completed (activity, placeholder) pairs for trace
-        routing plus monitor stat increments."""
+        routing plus monitor stat increments.
+
+        The call's time adds to ``deferred_ns``, and to
+        ``deferred_between_ns`` in full where the thread had no dispatch
+        open both as the call started and as it ended, in half where at
+        one of the two (when it entered or left a dispatch in between is
+        not known), not at all otherwise."""
         t_h0 = time.monotonic_ns()
         st = self._threads[tid]
+        closed = not st.open
         keyed = self._keyed
         counters = self._counters
         shadow = st.shadow
@@ -531,9 +557,11 @@ class Profiler:
             # one buffered trace chunk per drain (TraceWriter adopts
             # these wholesale at write time — append_chunk)
             st.trace_chunks.append(lane[np.asarray(rows, np.intp)])
+        took = time.monotonic_ns() - t_h0
+        closed += not st.open
         mc = st.mon_counts
         st.mon_counts = (mc[0] + kept_add, mc[1] + dropped_add,
-                         mc[2] + (time.monotonic_ns() - t_h0))
+                         mc[2] + took, mc[3] + took * closed // 2)
         return acts, {"ops": n_ops, "activities": n_act,
                       "counter_records": n_counter}
 
@@ -758,6 +786,22 @@ class Profiler:
                 out[f"gpu_trace_{sid}"] = tw.path
         return out
 
+    def trace_rows_us(self, base_time_ns: int) -> np.ndarray:
+        """(start, end) of every dispatch's trace row, of every thread, on
+        torch.profiler's timeline: microseconds after ``base_time_ns`` (a
+        chrome trace's ``baseTimeNanoseconds``), as the trace's ``ts``.
+        torch.profiler stamps ``ts`` so that ``ts + baseTimeNanoseconds``
+        is ``time.time_ns()``; the rows are on the profiler's clock, the
+        default ``time.monotonic_ns``, which ``clock_anchor`` ties to it.
+        Call after ``flush``."""
+        chunks = [c[:, :2] for st in list(self._threads.values())
+                  for c in st.trace_chunks]
+        if not chunks or self.clock_anchor is None:
+            return np.zeros((0, 2))
+        c0, w0 = self.clock_anchor
+        rows = np.concatenate(chunks).astype(np.int64)
+        return (rows - c0 + (w0 - int(base_time_ns))) / 1e3
+
     def _ring_wait(self, append, *args) -> None:
         # the ring is full: the monitor is >capacity records behind.
         # Yield the GIL until it catches up (bounded by monitor
@@ -783,9 +827,12 @@ class _Dispatch:
     ``@contextmanager`` generator (the generator machinery alone cost
     more than the ring appends it brackets).  One instance per dispatch;
     ``__enter__`` publishes the OP record, ``__exit__`` the ACTIVITY
-    record + trace-lane row and the thread's counter tuple."""
+    record + trace-lane row and the thread's counter tuple.  While
+    torch.profiler records (``scope.recording()``) the dispatch is also a
+    span named as its placeholder (``scope.SPAN_PREFIX + "kernel:step"``),
+    opened before the tool's own work and closed after it."""
 
-    __slots__ = ("_p", "_st", "_ctx", "_ph", "_te0", "_t0", "_seq",
+    __slots__ = ("_p", "_st", "_ctx", "_ph", "_te0", "_t0", "_seq", "_rf",
                  "kind", "name", "stream", "module_id", "nbytes",
                  "duration_ns")
 
@@ -802,12 +849,19 @@ class _Dispatch:
 
     def __enter__(self) -> CCTNode:
         p = self._p
+        rf = None
+        if scope.recording():
+            rf = torch.profiler.record_function(
+                f"{scope.SPAN_PREFIX}{self.kind}:{self.name}")
+            rf.__enter__()
+        self._rf = rf
         te0 = p.clock()
         self._te0 = te0
         st = p._threads.get(p._tid())
         if st is None:
             st = p._state()
         self._st = st
+        st.open = True
         ctx = p._dispatch_context(st)
         self._ctx = ctx
         ph_key = (ctx, self.kind, self.name, self.stream)
@@ -855,3 +909,6 @@ class _Dispatch:
         c = st.counts
         st.counts = (c[0] + (t0 - self._te0) + (te1 - t1),
                      c[1] + (t1 - t0), c[2] + 1)     # one atomic publish
+        st.open = False
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)

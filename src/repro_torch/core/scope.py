@@ -9,8 +9,18 @@ sample or a device kernel of the step is attributed to its phase.
 - while the step is traced (``core.export``), the names of the scopes
   open when a graph node is created become the outermost elements of that
   node's scope chain (its ``op_name``);
-- while the step runs, the scope is a ``torch.profiler.record_function``
-  range of the same name, which torch.profiler records.
+- while the step runs under torch.profiler, the scope is a
+  ``torch.profiler.record_function`` range of the same name.
+
+``span`` opens such a range and nothing else: it never enters the export's
+chains, so the exported structure and the port profiler's databases are
+the same with spans in place.  Spans mark where the work of a step
+happens (``SPANS``; a dispatch of the port's profiler is
+``SPAN_PREFIX + "<kind>:<name>"``, named as its placeholder), so a device
+idle gap in a torch.profiler trace is labelled by the innermost span the
+host was in.  Both open a range only while ``recording()``: torch.profiler
+is recording and no ``no_ranges`` is open.  Untraced, a scope or span
+costs one flag read and launches nothing.
 
 The stack of open names is one for the process, not one per thread: on
 CUDA tensors the autograd engine runs a backward in a thread of its own,
@@ -28,8 +38,32 @@ import torch
 # the train step's scopes, the JAX package's names
 TRAIN_SCOPES = ("fwd_bwd", "fwd_bwd_micro", "grad_compression", "optimizer")
 
+# every span's name starts with this; the port's custom ops
+# (``repro_torch::...``) and aten's never do
+SPAN_PREFIX = "rt."
+# launch/steps.py: a prefill step, a decode step
+PREFILL = SPAN_PREFIX + "prefill"
+DECODE = SPAN_PREFIX + "decode"
+# models/transformer.py: the embedding lookup; a block's attention (after
+# its input norm) with its residual add; its dense FFN or MoE FFN with
+# their norm and residual add; the final norm (and, serving, the
+# unembedding); in training the chunked unembedding and cross-entropy
+EMBED = SPAN_PREFIX + "embed"
+ATTN = SPAN_PREFIX + "attn"
+FFN = SPAN_PREFIX + "ffn"
+MOE = SPAN_PREFIX + "moe"
+HEAD = SPAN_PREFIX + "head"
+LOSS = SPAN_PREFIX + "loss"
+SPANS = (PREFILL, DECODE, EMBED, ATTN, FFN, MOE, HEAD, LOSS)
+
 _OPEN: List[str] = []
 _RANGES = [True]
+
+
+def recording() -> bool:
+    """True while torch.profiler records and no ``no_ranges`` is open:
+    the one check behind every range and counter of the port."""
+    return _RANGES[-1] and torch.autograd.profiler._is_profiler_enabled
 
 
 @contextlib.contextmanager
@@ -37,13 +71,24 @@ def named_scope(name: str):
     """Everything inside runs, and is traced, under scope ``name``."""
     _OPEN.append(name)
     try:
-        if _RANGES[-1]:
+        if recording():
             with torch.profiler.record_function(name):
                 yield
         else:
             yield
     finally:
         _OPEN.pop()
+
+
+@contextlib.contextmanager
+def span(name: str):
+    """A ``record_function`` range named ``name`` while ``recording()``;
+    never part of the export's chains."""
+    if recording():
+        with torch.profiler.record_function(name):
+            yield
+    else:
+        yield
 
 
 def active() -> Tuple[str, ...]:
@@ -53,8 +98,9 @@ def active() -> Tuple[str, ...]:
 
 @contextlib.contextmanager
 def no_ranges():
-    """While open, scopes open no ``record_function`` range: a tracer would
-    record the range's enter and exit as nodes of the graph."""
+    """While open, scopes and spans open no ``record_function`` range and
+    the MoE counts nothing: a tracer would record the range's enter and
+    exit, and the counters' adds, as nodes of the graph."""
     _RANGES.append(False)
     try:
         yield

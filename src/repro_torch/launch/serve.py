@@ -184,7 +184,8 @@ def serve(cfg: ModelConfig, *, n_requests: int = 8, batch: int = 4,
         measurement = os.path.join(prof.out_dir, "measurement.json")
         with open(measurement, "w") as f:
             json.dump({"steps": structure,
-                       "profiler": prof.overhead_counters()}, f, indent=1,
+                       "profiler": prof.overhead_counters(),
+                       "clock_anchor": prof.clock_anchor}, f, indent=1,
                       sort_keys=True)
         if paths is not None:
             paths["measurement"] = measurement

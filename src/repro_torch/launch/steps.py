@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import scope
 from repro_torch.core.scope import named_scope
 from repro_torch.distributed import compression as comp_mod
 from repro_torch.distributed import shardmap_compat as smc
@@ -290,7 +291,7 @@ def local_prefill_step(cfg, plan, opts, specs, cache_specs, rows: int):
 
     @torch.no_grad()
     def step(lp, mb):
-        with smc.bind(mesh):
+        with smc.bind(mesh), scope.span(scope.PREFILL):
             logits, cache = T.prefill(lp, cfg, mb.get("tokens"),
                                       mb.get("embeds"), opts=opts,
                                       mesh_args=ctx)
@@ -311,7 +312,7 @@ def local_decode_step(cfg, plan, opts, specs, cache_specs, rows: int):
 
     @torch.no_grad()
     def step(lp, lc, pos, token=None, embed=None):
-        with smc.bind(mesh):
+        with smc.bind(mesh), scope.span(scope.DECODE):
             work = {e: {k: v if k in ("k", "v") else smc.reshard(
                 v, cache_specs[e][k], compute[e][k]) for k, v in c.items()}
                 for e, c in lc.items()}
@@ -337,8 +338,9 @@ def make_prefill_step(cfg: ModelConfig, opts: T.ModelOptions, *,
     if plan is None or plan.mesh is None:
         @torch.no_grad()
         def prefill_step(params, batch):
-            return T.prefill(params, cfg, batch.get("tokens"),
-                             batch.get("embeds"), opts=opts)
+            with scope.span(scope.PREFILL):
+                return T.prefill(params, cfg, batch.get("tokens"),
+                                 batch.get("embeds"), opts=opts)
         return prefill_step
     mesh = plan.mesh
     from repro_torch.distributed.sharding import cache_shardings
@@ -371,8 +373,9 @@ def make_decode_step(cfg: ModelConfig, opts: T.ModelOptions, *, plan=None):
     if plan is None or plan.mesh is None:
         @torch.no_grad()
         def decode_step(params, cache, pos, token=None, embed=None):
-            return T.decode_step(params, cfg, cache, token=token,
-                                 embed=embed, pos=pos, opts=opts)
+            with scope.span(scope.DECODE):
+                return T.decode_step(params, cfg, cache, token=token,
+                                     embed=embed, pos=pos, opts=opts)
         return decode_step
     mesh = plan.mesh
 

@@ -192,7 +192,8 @@ def train(cfg: ModelConfig, shape: ShapeConfig, *, n_steps: int = 20,
         paths["measurement"] = os.path.join(prof.out_dir, "measurement.json")
         with open(paths["measurement"], "w") as f:
             json.dump({"steps": structure,
-                       "profiler": prof.overhead_counters()}, f, indent=1,
+                       "profiler": prof.overhead_counters(),
+                       "clock_anchor": prof.clock_anchor}, f, indent=1,
                       sort_keys=True)
     return params, history, paths
 

@@ -20,6 +20,14 @@ with their ffn-hidden dim sharded while the tokens are all-gathered and
 the partial outputs psum'd over (``fsdp``, ``model``) (``stationary``).
 The capacity is per shard, from the tokens a shard routes (``t_loc``),
 so with data > 1 it drops other tokens than the one-device path does.
+
+While torch.profiler records (``core.scope.recording()``) every
+``_local_moe`` call counts its dispatch into a device-side accumulator,
+as ``kernels.ops`` counts launches: the assignments routed to this
+shard's experts (T * top_k without a mesh), those dropped (over their
+expert's capacity: sent to the dump row) and the largest expert's load.
+``dispatch_counts()`` reads them, and is the only place that syncs;
+untraced, the path launches nothing for them.
 """
 from __future__ import annotations
 
@@ -28,8 +36,47 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import scope
 from repro_torch.distributed import shardmap_compat as smc
 from repro_torch.models.layers import dense_init
+
+# device -> int64 (routed, kept, largest load): sums, sums, a maximum
+_COUNTS: dict = {}
+_CALLS = {"calls": 0, "capacity": 0}
+
+
+def _count(mine, keep, counts, capacity: int) -> None:
+    """Adds one call's dispatch to its device's accumulator, on the
+    device."""
+    acc = _COUNTS.get(mine.device)
+    if acc is None:
+        acc = _COUNTS[mine.device] = torch.zeros(3, dtype=torch.int64,
+                                                 device=mine.device)
+    acc[:2] += torch.stack((mine.sum(), keep.sum()))
+    torch.maximum(acc[2:], counts[-1].max(), out=acc[2:])
+    _CALLS["calls"] += 1
+    _CALLS["capacity"] = capacity
+
+
+def dispatch_counts() -> dict:
+    """The MoE dispatch's counts since ``reset_dispatch_counts``, as
+    ints: ``calls`` (each ``_local_moe`` call while recording, the
+    remat's recompute in the backward included), ``routed`` and
+    ``dropped`` assignments summed over the calls, ``max_load`` the
+    largest expert's assignments in any one call (before its capacity),
+    ``capacity`` a call's slots an expert (the last call's)."""
+    out = dict(_CALLS, routed=0, dropped=0, max_load=0)
+    for acc in _COUNTS.values():
+        routed, kept, load = acc.tolist()
+        out["routed"] += routed
+        out["dropped"] += routed - kept
+        out["max_load"] = max(out["max_load"], load)
+    return out
+
+
+def reset_dispatch_counts() -> None:
+    _COUNTS.clear()
+    _CALLS.update(calls=0, capacity=0)
 
 
 class MoEMeshArgs(NamedTuple):
@@ -106,6 +153,8 @@ def _local_moe(x, wr, w1, w3, w2, *, n_experts: int, top_k: int,
     counts = onehot.t().contiguous().cumsum(dim=1).t()
     pos = ((counts - onehot) * onehot).sum(1)
     keep = mine & (pos < capacity)
+    if scope.recording():
+        _count(mine, keep, counts, capacity)
     slot = torch.where(keep, le * capacity + pos,
                        torch.full_like(pos, e_loc * capacity))  # dump row
 

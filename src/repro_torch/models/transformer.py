@@ -31,6 +31,11 @@ leaf (the embed, the unembed, the xLSTM and mamba weights) over every
 axis.  The residual stream is a rank's batch rows, replicated over
 ``model``: the reference's batch-sharding constraint on it holds by
 construction.
+
+While torch.profiler records, the embedding, each block's attention and
+FFN or MoE, the head and the loss are spans (``core.scope.span``:
+``rt.embed``, ``rt.attn``, ``rt.ffn`` / ``rt.moe``, ``rt.head``,
+``rt.loss``); the MAMBA and xLSTM blocks have none.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import (ATTN, HYBRID, MAMBA, MLSTM, SLSTM,
                                       SWA, ModelConfig)
+from repro_torch.core import scope
 from repro_torch.distributed import shardmap_compat as smc
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
@@ -384,19 +390,23 @@ def _apply_entry(p, spec: EntrySpec, x, positions, cfg, opts, mode: str,
         return x + y, _write_states(cache, new) if decode else new, 0.0
     window = cfg.window if spec.kind in (SWA, HYBRID) else 0
     tp = _tp(specs["attn"], ctx, "wq", "wk") if specs else None
-    y, new_cache = _attention(p["attn"], h, positions, cfg, window, opts,
-                              mode, cache, cache_pos, tp, seq)
-    if spec.kind == HYBRID:
-        ym, new = _mamba(p["mamba"], h, cfg, opts, cache if decode else None)
-        if decode:
-            _write_states(cache, new)
-        elif not train:
-            new_cache.update(new)
-        beta = p["beta"].to(x.dtype)
-        y = 0.5 * (beta[0] * y + beta[1] * ym)
-    x = x + y
-    y2, aux = _apply_ffn(p, rms_norm(x, p["ln2"]), cfg, ctx, specs)
-    return x + y2, new_cache, aux
+    with scope.span(scope.ATTN):
+        y, new_cache = _attention(p["attn"], h, positions, cfg, window,
+                                  opts, mode, cache, cache_pos, tp, seq)
+        if spec.kind == HYBRID:
+            ym, new = _mamba(p["mamba"], h, cfg, opts,
+                             cache if decode else None)
+            if decode:
+                _write_states(cache, new)
+            elif not train:
+                new_cache.update(new)
+            beta = p["beta"].to(x.dtype)
+            y = 0.5 * (beta[0] * y + beta[1] * ym)
+        x = x + y
+    with scope.span(scope.MOE if "moe" in p else scope.FFN):
+        y2, aux = _apply_ffn(p, rms_norm(x, p["ln2"]), cfg, ctx, specs)
+        x = x + y2
+    return x, new_cache, aux
 
 
 def _mamba(mp, h, cfg, opts, cache=None):
@@ -474,11 +484,12 @@ def embed_inputs(params, cfg: ModelConfig, tokens, embeds, ctx=None):
     """tokens: (B, S_text) integer or None; embeds: (B, S_front, d) or
     None."""
     parts = []
-    if embeds is not None:
-        parts.append(embeds.to(model_dtype(cfg)))
-    if tokens is not None:
-        parts.append(_top(params, "embed", ctx)[tokens])
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    with scope.span(scope.EMBED):
+        if embeds is not None:
+            parts.append(embeds.to(model_dtype(cfg)))
+        if tokens is not None:
+            parts.append(_top(params, "embed", ctx)[tokens])
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 def _seq_splits(ctx, cache) -> dict:
@@ -589,7 +600,8 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None, *,
     x = embed_inputs(params, cfg, tokens, embeds, mesh_args)
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = _train_stack(params, x, cfg, opts, positions, mesh_args)
-    return rms_norm(x, _top(params, "final_norm", mesh_args)), aux
+    with scope.span(scope.HEAD):
+        return rms_norm(x, _top(params, "final_norm", mesh_args)), aux
 
 
 def _chunk_loss(h, lab, unembed, z_loss: float):
@@ -644,8 +656,9 @@ def loss_fn(params, cfg: ModelConfig, batch, *,
     global: {"nll", "aux", "ntok", "loss"}."""
     hidden, aux = forward(params, cfg, batch.get("tokens"),
                           batch.get("embeds"), opts=opts, mesh_args=mesh_args)
-    loss, ntok = lm_loss(params, cfg, hidden, batch["labels"], opts=opts,
-                         mesh_args=mesh_args)
+    with scope.span(scope.LOSS):
+        loss, ntok = lm_loss(params, cfg, hidden, batch["labels"],
+                             opts=opts, mesh_args=mesh_args)
     if mesh_args is None:
         nll = loss / torch.clamp(ntok, min=1.0)
         return nll + 0.01 * aux, {"nll": nll, "aux": aux, "ntok": ntok}
@@ -660,8 +673,9 @@ def loss_fn(params, cfg: ModelConfig, batch, *,
 
 
 def _unembed_last(params, x, ctx=None):
-    h = rms_norm(x[:, -1:], _top(params, "final_norm", ctx))
-    return (h @ _top(params, "unembed", ctx))[:, 0].float()
+    with scope.span(scope.HEAD):
+        h = rms_norm(x[:, -1:], _top(params, "final_norm", ctx))
+        return (h @ _top(params, "unembed", ctx))[:, 0].float()
 
 
 def prefill(params, cfg: ModelConfig, tokens=None, embeds=None, *,
@@ -683,10 +697,11 @@ def decode_step(params, cfg: ModelConfig, cache, token=None, embed=None,
     of this token, a Python int.  Returns (logits (B,V) fp32, cache), with
     the cache updated in place.
     """
-    if embed is None:
-        x = _top(params, "embed", mesh_args)[token[:, None]]
-    else:
-        x = embed.to(model_dtype(cfg))
+    with scope.span(scope.EMBED):
+        if embed is None:
+            x = _top(params, "embed", mesh_args)[token[:, None]]
+        else:
+            x = embed.to(model_dtype(cfg))
     pos = int(pos)
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
