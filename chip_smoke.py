@@ -195,7 +195,8 @@ STATE_TOL = dict(rtol=1e-2, atol=1e-2)   # SSD final state, tests/test_kernels.p
 ROW_TOL = 2e-2   # per row: max abs error over max |reference|
 SSM_STEPS = 3    # device kernels per SSD scan: state, state pass, output
 PORT_KERNEL = re.compile(
-    r"flash_fwd_kernel|flash_decode_kernel|ssd_\w+_kernel")
+    r"flash_fwd_kernel|flash_decode_kernel|ssd_\w+_kernel|uncombine_kernel"
+    r"|combine_kernel")
 B, N_REQUESTS, GEN_LEN = 4, 8, 32
 # each serving path: its prompt, and the 2-layer CPU check's prompt and
 # window (hymba's reduced so that the ring wraps and the CPU side stays
@@ -218,7 +219,8 @@ SERVING_PATHS = {
 # databases (tens of MB a model)
 SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
 BUDGET = 0.5     # the serving sweep's overhead budget
-KERNELS = ("flash_attention", "flash_decode", "ssm_scan")
+KERNELS = ("flash_attention", "flash_decode", "ssm_scan", "moe_combine",
+           "moe_uncombine")
 COUNTERS = ("flops", "mxu_flops", "hbm_bytes", "inst_executed", "active_ns",
             "elapsed_ns")
 SOURCES = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -226,7 +228,28 @@ SOURCES = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
            "flash_decode": ("src/repro_torch/csrc/decode_attention.cu",
                             "src/repro/kernels/decode_attention.py:30"),
            "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
-                        "src/repro/kernels/ssm_scan.py:34")}
+                        "src/repro/kernels/ssm_scan.py:34"),
+           # no TPU kernel: the JAX package's combine is XLA ops
+           "moe_combine": ("src/repro_torch/csrc/moe_combine.cu",
+                           "src/repro/models/moe.py:121 (XLA ops)"),
+           "moe_uncombine": ("src/repro_torch/csrc/moe_uncombine.cu",
+                             "src/repro/models/moe.py:121 (its autograd)")}
+# the MoE combine's checks (T tokens, top k, width d, expert rows R): the
+# granite.train1k cell's step (8 x 1024 tokens, top 8 of 32 experts,
+# capacity 2560), granite-moe's training path here (4 x 512, capacity
+# 640), a decode step's (4 tokens, capacity 8) and a width no 16-byte load
+# divides (the kernels' element-wise path); the share of assignments sent
+# to the dump row; dw against the plain autograd's, relative to its
+# largest (y and d_eo must be bitwise)
+COMBINE_SHAPES = {"train8k": (8192, 8, 1024, 32 * 2560),
+                  "train": (2048, 8, 1024, 32 * 640),
+                  "decode": (4, 8, 1024, 32 * 8),
+                  "narrow": (64, 4, 102, 8 * 40)}
+COMBINE_DROPS = (0.0, 0.3, 0.6)
+COMBINE_DW_TOL = 1e-5
+# the drop share the combine's timings take: granite.train1k's window
+# drops 25-33% of its assignments (PERF.md)
+COMBINE_TIMED_DROP = 0.3
 
 
 # the first four paths run every path (serving, the step breakdowns,
@@ -290,7 +313,8 @@ def build_kernels() -> tuple:
     registers, shared memory and spills)."""
     from repro_torch.kernels import build
     t0 = time.monotonic()
-    build.build(["flash_attention", "decode_attention", "ssm_scan"])
+    build.build(["flash_attention", "decode_attention", "ssm_scan",
+                 "moe_combine", "moe_uncombine"])
     seconds = time.monotonic() - t0
     lines = []
     for name, text in build.PTXAS.items():
@@ -338,6 +362,122 @@ def _ssm_inputs(gen, b, s, nh, hd, st, decay=None, with_h0=False):
     h0 = _randn((b, nh, hd, st), gen, 0.1, torch.float32) if with_h0 \
         else None
     return xv, ld, Bm, Cm, h0
+
+
+def _combine_capacity(cfg, tokens: int) -> int:
+    """An expert's slots for ``tokens`` tokens routed on one device, as
+    ``models.moe.moe_ffn`` sizes them."""
+    m = cfg.moe
+    return max(m.top_k, int(tokens * m.top_k / m.n_experts
+                            * m.capacity_factor))
+
+
+def _combine_inputs(T: int, k: int, d: int, R: int, drop: float,
+                    dtype=torch.bfloat16, seed: int = 11) -> tuple:
+    """The MoE combine's operands on the card, drawn on the CPU from
+    ``seed``: eo (R, d) in ``dtype`` and w = gates * keep (T, k) fp32,
+    leaves that require grad, slot (T * k,) int64 with round(drop * T * k)
+    assignments at the dump row R and the kept ones at distinct random
+    rows, dy (T, d) fp32 and keep.  Returns (eo, slot, w, dy, keep, kept
+    rows)."""
+    gen = torch.Generator().manual_seed(seed)
+    n = T * k
+    n_keep = n - round(drop * n)
+    keep = torch.zeros(n, dtype=torch.bool)
+    keep[torch.randperm(n, generator=gen)[:n_keep]] = True
+    slot = torch.full((n,), R, dtype=torch.long)
+    slot[keep] = torch.randperm(R, generator=gen)[:n_keep]
+    eo = torch.randn((R, d), generator=gen).to(dtype)
+    gates = torch.rand((T, k), generator=gen)
+    gates = gates / gates.sum(-1, keepdim=True)
+    w = gates * keep.reshape(T, k)
+    dy = torch.randn((T, d), generator=gen)
+    return (eo.cuda().requires_grad_(True), slot.cuda(),
+            w.cuda().requires_grad_(True), dy.cuda(), keep.cuda(), n_keep)
+
+
+def check_combine() -> dict:
+    """The MoE combine's two kernels through the wrappers the main paths
+    call (``ops.moe_combine`` and its registered backward, the adjoint
+    ``ops.moe_uncombine``) against the plain version (the combine as the
+    MoE layer computed it before the op, ``moe_combine_plain``, and its
+    autograd) at every ``COMBINE_SHAPES`` shape and ``COMBINE_DROPS``
+    share, bf16 and fp32 rows: y and d_eo bitwise, dw within
+    ``COMBINE_DW_TOL`` of its largest value and 0 at the dump row, each
+    wrapper's ``launches`` counter bumped once a call.  A forward runs one
+    device kernel, an adjoint the fill of d_eo and one kernel; a half
+    precision row or an int32 slot is refused.  Returns {"moe_combine": y
+    max abs err, "moe_uncombine": d_eo max abs err, "dw_rel": the largest
+    dw error over its largest value, "kernels": {forward, adjoint: device
+    kernel names}}."""
+    from repro_torch.kernels import moe_combine as mc
+    from repro_torch.kernels import ops
+    out = {"moe_combine": 0.0, "moe_uncombine": 0.0, "dw_rel": 0.0}
+    for label, (T, k, d, R) in COMBINE_SHAPES.items():
+        for drop in COMBINE_DROPS:
+            for dtype in (torch.bfloat16, torch.float32):
+                eo, slot, w, dy, keep, _ = _combine_inputs(T, k, d, R, drop,
+                                                           dtype)
+                want = mc.moe_combine_plain(eo, slot, w)
+                d_eo0, dw0 = torch.autograd.grad(want, (eo, w), dy)
+                before = (ops.moe_combine.launches,
+                          ops.moe_uncombine.launches)
+                got = ops.moe_combine(eo, slot, w)
+                d_eo1, dw1 = torch.autograd.grad(got, (eo, w), dy)
+                torch.cuda.synchronize()
+                case = (label, drop, str(dtype))
+                bumped = (ops.moe_combine.launches - before[0],
+                          ops.moe_uncombine.launches - before[1])
+                if bumped != (1, 1):
+                    raise AssertionError(f"moe_combine {case}: launches "
+                                         f"counted {bumped}, want (1, 1)")
+                e_y = float((got - want).detach().abs().max())
+                e_eo = float((d_eo1.float() - d_eo0.float()).abs().max())
+                if not (torch.equal(got, want) and torch.equal(d_eo1,
+                                                               d_eo0)):
+                    raise AssertionError(f"moe_combine {case}: y or d_eo "
+                                         f"not bitwise the plain version's "
+                                         f"(max abs err {e_y}, {e_eo})")
+                dw_rel = float((dw1 - dw0).abs().max()
+                               / dw0.abs().max().clamp_min(1e-30))
+                at_dump = dw1[~keep.reshape(T, k)]
+                if dw_rel > COMBINE_DW_TOL or bool(at_dump.any()):
+                    raise AssertionError(f"moe_combine {case}: dw off the "
+                                         f"plain autograd's by {dw_rel} of "
+                                         f"its largest, or not 0 at the "
+                                         f"dump row")
+                out["moe_combine"] = max(out["moe_combine"], e_y)
+                out["moe_uncombine"] = max(out["moe_uncombine"], e_eo)
+                out["dw_rel"] = max(out["dw_rel"], dw_rel)
+    eo, slot, w, dy, _, _ = _combine_inputs(*COMBINE_SHAPES["train"],
+                                            COMBINE_TIMED_DROP)
+    eo, w = eo.detach(), w.detach()
+    out["kernels"] = {
+        "forward": sorted(device_ms_by_kernel(
+            lambda: ops.moe_combine(eo, slot, w), iters=5)),
+        "adjoint": sorted(device_ms_by_kernel(
+            lambda: ops.moe_uncombine(dy, eo, slot, w), iters=5))}
+    fwd, adj = out["kernels"]["forward"], out["kernels"]["adjoint"]
+    if len(fwd) != 1 or not re.search(r"\bcombine_kernel", fwd[0]) or \
+            len(adj) != 2 or not any("uncombine_kernel" in n for n in adj) \
+            or not any("memset" in n.lower() for n in adj):
+        raise AssertionError(f"moe_combine: device kernels {out['kernels']}"
+                             f"; want the forward's kernel alone, and the "
+                             f"adjoint's fill and kernel")
+    bad = torch.zeros((8, 16), dtype=torch.float16, device="cuda")
+    slot4 = torch.zeros(4, dtype=torch.long, device="cuda")
+    w4 = torch.zeros((2, 2), device="cuda")
+    for args, msg in (((bad, slot4, w4), "float32 or bfloat16"),
+                      ((bad.float(), slot4.int(), w4), "int64")):
+        try:
+            ops.moe_combine(*args)
+        except ValueError as e:
+            if msg not in str(e):
+                raise
+        else:
+            raise AssertionError(f"moe_combine took "
+                                 f"{[a.dtype for a in args]}")
+    return out
 
 
 def check_kernels() -> tuple:
@@ -551,6 +691,14 @@ def check_kernels() -> tuple:
             raise AssertionError(f"flash_decode ran {distinct} distinct "
                                  f"device kernels, {per_call} per call; "
                                  f"want one")
+    comb = check_combine()
+    errs.update(moe_combine=comb["moe_combine"],
+                moe_uncombine=comb["moe_uncombine"])
+    print(f"moe_combine and moe_uncombine: y and d_eo bitwise the plain "
+          f"version's at {json.dumps(COMBINE_SHAPES)} x drops "
+          f"{list(COMBINE_DROPS)} x bf16 and fp32 rows; dw's largest error "
+          f"over its largest value {comb['dw_rel']!r}; device kernels "
+          f"{json.dumps(comb['kernels'])}", flush=True)
     return errs, ratios
 
 
@@ -740,7 +888,8 @@ def time_kernels(cfg, prompt: int) -> tuple:
     count up to ``MAX_SPLITS``, with the planner's own count, {device
     kernel: ms} of the SSD scan's steps, empty without a mamba layer).
     A stack without attention (MAMBA blocks alone) times the scan
-    alone."""
+    alone; one with MoE layers also times the combine of a decode
+    step."""
     from repro_torch.configs.base import HYBRID, SWA
     from repro_torch.kernels import decode_attention as fd
     from repro_torch.kernels import ops
@@ -788,6 +937,12 @@ def time_kernels(cfg, prompt: int) -> tuple:
             iters=50))
     plan = fd.plan_splits(B, hkv, length, fd._sm_count(qd.device),
                           fd.q_tiles(h, hkv))
+    if cfg.moe_layers():
+        # the combine of a decode step (B tokens), most of a serve's
+        # launches; no assignment dropped
+        res["moe_combine"] = _timed(*_combine_fns(
+            B, cfg.moe.top_k, cfg.d_model,
+            cfg.moe.n_experts * _combine_capacity(cfg, B), 0.0))
     return res, dict(planner=list(plan), device_ms=splits), steps
 
 
@@ -829,6 +984,41 @@ def _ssm_fns(gen, b: int, s: int, h: int, d: int, st: int,
                plain_ms=lambda: ss.ssm_scan_plain(xv, ld, Bm, Cm,
                                                   chunk=chunk))
     return (fns, *ss.work(b, s, h, d, st, chunk))
+
+
+def _combine_fns(T: int, k: int, d: int, R: int, drop: float,
+                 adjoint: bool = False) -> tuple:
+    """({ms: the wrapper, plain_ms: the plain version}, FLOPs, bytes) of
+    the MoE combine (``adjoint``: its adjoint, whose plain version is the
+    plain combine's autograd backward alone, on a kept graph) at these
+    shapes with bf16 rows, ``drop`` of the assignments at the dump row,
+    on fresh inputs; no single PyTorch call computes either."""
+    from repro_torch.kernels import moe_combine as mc
+    from repro_torch.kernels import ops
+    eo, slot, w, dy, _, kept = _combine_inputs(T, k, d, R, drop)
+    e, g = eo.detach(), w.detach()
+    if not adjoint:
+        fns = dict(ms=lambda: ops.moe_combine(e, slot, g),
+                   plain_ms=lambda: mc.moe_combine_plain(e, slot, g))
+        return (fns, *mc.work(T, k, d, R, kept=kept))
+    y = mc.moe_combine_plain(eo, slot, w)
+    fns = dict(ms=lambda: ops.moe_uncombine(dy, e, slot, g),
+               plain_ms=lambda: torch.autograd.grad(y, (eo, w), dy,
+                                                    retain_graph=True))
+    return (fns, *mc.uncombine_work(T, k, d, R, kept=kept))
+
+
+def time_combine_cell() -> dict:
+    """The MoE combine's two kernels (``_timed``) at the granite.train1k
+    cell's shape (``COMBINE_SHAPES["train8k"]``) and the drop shares of
+    its window (25-54%): {drop: {kernel: device times}}."""
+    out = {}
+    for drop in (0.25, COMBINE_TIMED_DROP, 0.54):
+        out[drop] = {
+            name: _timed(*_combine_fns(*COMBINE_SHAPES["train8k"], drop,
+                                       adjoint=name == "moe_uncombine"))[0]
+            for name in ("moe_combine", "moe_uncombine")}
+    return out
 
 
 def host_us(fn, n: int = 200) -> float:
@@ -972,14 +1162,18 @@ def serve_launches(cfg) -> dict:
     of ``B``: every attention layer's flash prefill once a prefill and its
     decode once a decode step, every mamba layer's (HYBRID or MAMBA) SSD
     scan once a prefill (decode is the O(1) recurrence), for the warm-up
-    and each batch."""
+    and each batch, and every MoE layer's combine once a prefill and once
+    a decode step (no adjoint: nothing is differentiated)."""
     from repro_torch.configs.base import ATTN, HYBRID, MAMBA, SWA
     n_batches = -(-N_REQUESTS // B)
     n_attn = sum(k in (ATTN, SWA, HYBRID) for k in cfg.blocks)
     n_mamba = sum(k in (HYBRID, MAMBA) for k in cfg.blocks)
+    n_moe = len(cfg.moe_layers())
     return {"flash_attention": n_attn * (n_batches + 1),
             "flash_decode": n_attn * ((GEN_LEN - 1) * n_batches + 1),
-            "ssm_scan": n_mamba * (n_batches + 1)}
+            "ssm_scan": n_mamba * (n_batches + 1),
+            "moe_combine": n_moe * (GEN_LEN * n_batches + 2),
+            "moe_uncombine": 0}
 
 
 def run_serve(cfg, params, prompt: int) -> dict:
@@ -1741,7 +1935,9 @@ def run_frontend(cfg, params, seq: int) -> dict:
     t2 = time.perf_counter()
     launches = {name: getattr(ops, name).launches for name in KERNELS}
     want = {"flash_attention": cfg.n_layers,
-            "flash_decode": cfg.n_layers * (GEN_LEN - 1), "ssm_scan": 0}
+            "flash_decode": cfg.n_layers * (GEN_LEN - 1), "ssm_scan": 0,
+            "moe_combine": len(cfg.moe_layers()) * GEN_LEN,
+            "moe_uncombine": 0}
     if launches != want:
         raise AssertionError(f"{cfg.name} {cfg.frontend}: launch counts "
                              f"{launches}, expected {want}")
@@ -2062,6 +2258,14 @@ LAUNCHES_PER_LAYER = 2
 TRAIN_TIMED_STEPS = 2
 
 
+def _train_custom_calls(cfg) -> int:
+    """Custom-calls of a recorded train step: ``LAUNCHES_PER_LAYER`` a
+    layer for the layers' kernels (flash or the SSD scan), and each MoE
+    layer's combine in the forward and the recompute and its adjoint in
+    the backward (``ops.moe_combine``, ``ops.moe_uncombine``)."""
+    return cfg.n_layers * LAUNCHES_PER_LAYER + 3 * len(cfg.moe_layers())
+
+
 def _train_spec(key: str) -> dict:
     return {**TRAIN_PATHS, **BIG_TRAIN_PATHS}[key]
 
@@ -2265,6 +2469,12 @@ def time_train_kernels(name: str) -> dict:
     if _has_mamba(cfg):
         kernels["ssm_scan"] = _timed(*_ssm_fns(gen, b, seq, h, d,
                                                cfg.ssm_state, 64))
+    if cfg.moe_layers():
+        shape = (b * seq, cfg.moe.top_k, cfg.d_model,
+                 cfg.moe.n_experts * _combine_capacity(cfg, b * seq))
+        for kname in ("moe_combine", "moe_uncombine"):
+            kernels[kname] = _timed(*_combine_fns(
+                *shape, COMBINE_TIMED_DROP, adjoint=kname == "moe_uncombine"))
     return kernels
 
 
@@ -2411,8 +2621,9 @@ def train_path(name: str) -> dict:
     the path's depth (``_config``), seeded weights, every kernel launch
     counter set to 0 just before and read just after; the counts must be
     the remat policy's (layers x steps x ``LAUNCHES_PER_LAYER`` for each
-    kernel the layers run) and every loss finite.  Under the port's profiler (qwen2,
-    granite-moe): the registered train step has one custom-call per
+    kernel the layers run, each MoE layer's combine as often and its
+    adjoint once a step) and every loss finite.  Under the port's
+    profiler (qwen2, granite-moe): the registered train step has one custom-call per
     launch of a step, and the aggregated database
     (``build/chip_smoke/db/<model>-train``) has PC samples under the
     train_step placeholder that reach a dot_general leaf of
@@ -2444,10 +2655,13 @@ def train_path(name: str) -> dict:
     peak = torch.cuda.max_memory_allocated() - before
     launches = {kname: getattr(ops, kname).launches for kname in KERNELS}
     per_step = cfg.n_layers * LAUNCHES_PER_LAYER
+    n_moe = len(cfg.moe_layers())
     want = {"flash_attention": per_step * spec["steps"]
             if _has_attention(cfg) else 0, "flash_decode": 0,
             "ssm_scan": per_step * spec["steps"]
-            if _has_mamba(cfg) else 0}
+            if _has_mamba(cfg) else 0,
+            "moe_combine": n_moe * LAUNCHES_PER_LAYER * spec["steps"],
+            "moe_uncombine": n_moe * spec["steps"]}
     losses = [h["loss"] for h in hist]
     print(f"train {name}: launches {json.dumps(launches)}, expected "
           f"{json.dumps(want)} ({cfg.n_layers} layers x {spec['steps']} "
@@ -2466,10 +2680,10 @@ def train_path(name: str) -> dict:
     with open(paths["measurement"]) as f:
         measurement = json.load(f)
     step = measurement["steps"]["train_step"]
-    if step["custom_calls"] != per_step:
+    if step["custom_calls"] != _train_custom_calls(cfg):
         raise AssertionError(f"{name} train step: {step['custom_calls']} "
-                             f"custom-calls bound, {per_step} launches a "
-                             f"step")
+                             f"custom-calls bound, "
+                             f"{_train_custom_calls(cfg)} expected")
     db = _database(paths, os.path.join(SCRATCH, "db", f"{name}-train"))
     got = interior_samples(db).get("train_step", {})
     k = got.get("kernels", {}).get("flash_attention")
@@ -3427,20 +3641,28 @@ def multi_rank_phase(card: str) -> dict:
         raise AssertionError(f"multi_rank: the unsharded losses {base} "
                              f"hardly move")
     one["off"] = check(s, "one rank")
+    # a train step: flash and each MoE layer's combine in the forward and
+    # the remat's recompute, the combine's adjoint in the backward
+    n_moe = len(cfg.moe_layers())
+    trained = dict(flash_attention=per_step * MR_STEPS, flash_decode=0,
+                   ssm_scan=0,
+                   moe_combine=n_moe * LAUNCHES_PER_LAYER * MR_STEPS,
+                   moe_uncombine=n_moe * MR_STEPS)
     for run, what in ((u, "unsharded"), (s, "one rank")):
-        if run["launches"]["flash_attention"] != per_step * MR_STEPS:
-            raise AssertionError(f"multi_rank {what}: flash launches "
-                                 f"{run['launches']}, want "
-                                 f"{per_step * MR_STEPS}")
+        if run["launches"] != trained:
+            raise AssertionError(f"multi_rank {what}: launches "
+                                 f"{run['launches']}, want {trained}")
+    # a served prefill and MR_DECODE - 1 decode steps
+    served = dict(flash_attention=cfg.n_layers,
+                  flash_decode=cfg.n_layers * (MR_DECODE - 1), ssm_scan=0,
+                  moe_combine=n_moe * MR_DECODE, moe_uncombine=0)
     for r, res in enumerate(two):
         t = res["sharded"]
         res["off"] = check(t, f"two ranks, rank {r}")
-        if t["launches"]["flash_attention"] != per_step * MR_STEPS:
-            raise AssertionError(f"multi_rank rank {r}: flash launches "
-                                 f"{t['launches']}")
-        want = dict(flash_attention=cfg.n_layers,
-                    flash_decode=cfg.n_layers * (MR_DECODE - 1),
-                    ssm_scan=0)
+        if t["launches"] != trained:
+            raise AssertionError(f"multi_rank rank {r}: launches "
+                                 f"{t['launches']}, want {trained}")
+        want = served
         if res["serve_launches"] != want:
             raise AssertionError(f"multi_rank rank {r}: serving launches "
                                  f"{res['serve_launches']}, want {want}")
@@ -3459,16 +3681,14 @@ def multi_rank_phase(card: str) -> dict:
                              "restore bitwise on one rank")
     dry = _mr_check_dry(one, two)
     for r, res in enumerate(two):
-        want = dict(flash_attention=cfg.n_layers,
-                    flash_decode=cfg.n_layers * (MR_DECODE - 1),
-                    ssm_scan=0)
+        want = served
         if res["seq_launches"] != want:
             raise AssertionError(f"multi_rank rank {r}: seq-split serving "
                                  f"launches {res['seq_launches']}, want "
                                  f"{want}")
         prof = res["profiled"]
         if prof["dir"] != f"rank{r}" or prof["collectives"] < 1 or \
-                prof["custom_calls"] != LAUNCHES_PER_LAYER * cfg.n_layers:
+                prof["custom_calls"] != _train_custom_calls(cfg):
             raise AssertionError(f"multi_rank rank {r}: profiled train "
                                  f"step {prof}")
     if two[0]["seq_err"] is None or two[0]["seq_err"] > TOL["rtol"]:
@@ -3594,6 +3814,11 @@ def main() -> int:
           f"err / row max {ratios}", flush=True)
     torch.cuda.empty_cache()
     train_errs, grad_errs = check_kernel_grads()
+    # check_combine holds the combine at granite-moe's training shape
+    # (COMBINE_SHAPES["train"]) among the others
+    train_errs.update({(name, k): errs[k] for name in TRAINED
+                       if _train_config(name).moe_layers()
+                       for k in ("moe_combine", "moe_uncombine")})
     print(f"kernel forward checks at the training shapes passed: max abs "
           f"err {json.dumps({'/'.join(k): v for k, v in train_errs.items()})}"
           f"; gradient checks (the recompute's wiring) passed: max abs err "
@@ -3613,6 +3838,9 @@ def main() -> int:
         for kname, (t, calls) in train_times[name].items():
             print(f"{name} train {kname}: device {json.dumps(t)}; "
                   f"back-to-back call {json.dumps(calls)}", flush=True)
+    print(f"moe_combine and moe_uncombine at granite.train1k's shape "
+          f"({card}), by drop share: {json.dumps(time_combine_cell())}",
+          flush=True)
     phase("kernel timings")
     # the reference's single-card configurations, one at a time, before
     # the four models below are allocated (qwen3-32b's weights alone are

@@ -14,10 +14,11 @@ aggregation) runs unchanged:
   becomes ``exponential``, views (which move no data in PyTorch) become
   ``bitcast``; graph inputs become ``parameter`` (``constant`` for lifted
   constants), ``getitem`` a ``get-tuple-element``, and the graph's output
-  a ``tuple``: pseudo-ops that are never sampled.  The three Hopper
+  a ``tuple``: pseudo-ops that are never sampled.  The Hopper
   kernels (``repro_torch::flash_attention``, ``::flash_decode``,
-  ``::ssm_scan``) become ``custom-call`` ops whose ``op_name`` ends in
-  the kernel's name (``KERNEL_NAMES``), so
+  ``::ssm_scan``, ``::moe_combine`` and ``::moe_uncombine``) become
+  ``custom-call`` ops whose ``op_name`` ends in the kernel's name
+  (``KERNEL_NAMES``), so
   ``HloModule.bind_kernel_structure`` binds their recovered interiors
   (``core.kstruct``) unchanged.  The collectives of a sharded step
   (``distributed.shardmap_compat``'s custom ops) become the HLO
@@ -92,7 +93,9 @@ SCOPE_DIRS = (os.path.join("repro_torch", "models") + os.sep,
 KERNEL_NAMES = {"repro_torch::flash_attention": "flash_attention",
                 "repro_torch::flash_decode": "decode_attention",
                 "repro_torch::flash_decode_lse": "decode_attention",
-                "repro_torch::ssm_scan": "ssm_scan"}
+                "repro_torch::ssm_scan": "ssm_scan",
+                "repro_torch::moe_combine": "moe_combine",
+                "repro_torch::moe_uncombine": "moe_uncombine"}
 
 _VIEWS = ("view", "_unsafe_view", "reshape", "_reshape_alias", "unsqueeze",
           "squeeze", "expand", "expand_as", "permute", "transpose", "t",

@@ -59,7 +59,9 @@ def call_shapes(schema: str, args) -> tuple:
     """(kernel name, its ``work`` shapes) of one call of a kernel's custom
     op (``schema``: ``repro_torch::flash_attention``, ``::flash_decode``,
     ``::flash_decode_lse`` or ``::ssm_scan``) whose arguments are
-    ``args``, each tensor given by its shape; None for another op."""
+    ``args``, each tensor given by its shape; None for another op.
+    ``::moe_combine`` and ``::moe_uncombine`` are kernels of their own
+    names."""
     name = schema.split("::")[-1]
     if name == "flash_attention":
         (B, S, H, D), Hkv = args[0], args[1][2]
@@ -73,15 +75,21 @@ def call_shapes(schema: str, args) -> tuple:
         B, S, nh, hd = args[0]
         return "ssm_scan", dict(B=B, S=S, nh=nh, hd=hd, st=args[2][-1],
                                 chunk=int(args[5]))
+    if name in ("moe_combine", "moe_uncombine"):
+        eo, w = (args[1], args[3]) if name == "moe_uncombine" else \
+            (args[0], args[2])
+        return name, dict(T=w[0], k=w[1], d=eo[1], R=eo[0])
     return None
 
 
 def work_of(kernel: str):
     from repro_torch.kernels import decode_attention, flash_attention, \
-        ssm_scan
+        moe_combine, ssm_scan
     return {"flash_attention": flash_attention.work,
             "decode_attention": decode_attention.work,
-            "ssm_scan": ssm_scan.work}[kernel]
+            "ssm_scan": ssm_scan.work,
+            "moe_combine": moe_combine.work,
+            "moe_uncombine": moe_combine.uncombine_work}[kernel]
 
 
 def graph_structures(gm) -> tuple:

@@ -2,7 +2,8 @@
 
 Each kernel is a ``torch.library.custom_op`` (``repro_torch::
 flash_attention``, ``repro_torch::flash_decode``, ``repro_torch::
-ssm_scan``) with two implementations: on a CUDA tensor it launches the
+ssm_scan``, ``repro_torch::moe_combine`` and its adjoint ``repro_torch::
+moe_uncombine``) with two implementations: on a CUDA tensor it launches the
 hand-written kernel (or raises: there is no fallback), on a CPU tensor it
 runs the kernel's plain torch version.  ``register_fake`` gives shapes and
 dtypes, so ``torch.export`` and ``make_fx`` record each kernel as one
@@ -23,6 +24,8 @@ chunked_attention`` with the same causal/window mask and q aligned at
 position 0, the scan through ``ssm_scan_plain``).  So on the card the
 forward is the kernel, its recompute under remat is the kernel again (a
 counted launch), and the backward launches no kernel of the port.
+``moe_combine`` has no TPU kernel behind it and a backward kernel of its
+own: its registered backward is ``moe_uncombine``, one launch.
 ``flash_decode`` is inference-only, as in the reference: a CUDA input
 that requires grad raises ``NotImplementedError``.
 """
@@ -35,6 +38,7 @@ from torch import Tensor
 
 from repro_torch.kernels import decode_attention as _fd
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_combine as _mc
 from repro_torch.kernels import ssm_scan as _ss
 
 
@@ -185,6 +189,61 @@ _ssm_scan_op.register_autograd(_ssm_scan_backward,
                                setup_context=_ssm_scan_setup)
 
 
+@torch.library.custom_op("repro_torch::moe_combine", mutates_args=(),
+                         device_types="cpu")
+def _moe_combine_op(eo: Tensor, slot: Tensor, w: Tensor) -> Tensor:
+    return _mc.moe_combine_plain(eo, slot, w)
+
+
+@_moe_combine_op.register_kernel("cuda")
+def _(eo, slot, w):
+    out = _mc.moe_combine_cuda(eo, slot, w)
+    moe_combine.launches += 1
+    return out
+
+
+@_moe_combine_op.register_fake
+def _(eo, slot, w):
+    return eo.new_empty((w.shape[0], eo.shape[1]), dtype=torch.float32)
+
+
+def _combine_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _combine_backward(ctx, dy):
+    """The combine's adjoint, a kernel of its own on the card."""
+    eo, slot, w = ctx.saved_tensors
+    d_eo, dw = moe_uncombine(dy, eo, slot, w)
+    return d_eo, None, dw
+
+
+_moe_combine_op.register_autograd(_combine_backward,
+                                  setup_context=_combine_setup)
+
+
+# the combine's adjoint; its name shares no substring with the combine's,
+# since a kernel's interior binds to every custom-call whose name holds
+# the kernel's
+@torch.library.custom_op("repro_torch::moe_uncombine", mutates_args=(),
+                         device_types="cpu")
+def _moe_uncombine_op(dy: Tensor, eo: Tensor, slot: Tensor,
+                      w: Tensor) -> tuple[Tensor, Tensor]:
+    return _mc.moe_uncombine_plain(dy, eo, slot, w)
+
+
+@_moe_uncombine_op.register_kernel("cuda")
+def _(dy, eo, slot, w):
+    out = _mc.moe_uncombine_cuda(dy, eo, slot, w)
+    moe_uncombine.launches += 1
+    return out
+
+
+@_moe_uncombine_op.register_fake
+def _(dy, eo, slot, w):
+    return torch.empty_like(eo), torch.empty_like(w)
+
+
 # ---------------------------------------------------------------------------
 # the public wrappers
 # ---------------------------------------------------------------------------
@@ -225,9 +284,27 @@ def ssm_scan(xv, logdecay, Bmat, Cmat, h0=None, chunk: int = 256):
     return _ssm_scan_op(xv, logdecay, Bmat, Cmat, h0, c)
 
 
+def moe_combine(eo, slot, w):
+    """The MoE dispatch's gated combine: eo (R, d) the experts' output
+    rows, slot (T*k,) int64 each assignment's row (R: the dump row, which
+    adds nothing), w (T, k) fp32 the gates (0 where dropped) -> y (T, d)
+    fp32, each token's slots summed in order.  Differentiable: the
+    backward is ``moe_uncombine``."""
+    return _moe_combine_op(eo, slot, w)
+
+
+def moe_uncombine(dy, eo, slot, w):
+    """The combine's adjoint: dy (T, d) fp32 and the combine's operands
+    -> (d_eo (R, d) in eo's dtype, each kept slot's row written once,
+    dw (T, k) fp32, 0 at the dump row)."""
+    return _moe_uncombine_op(dy, eo, slot, w)
+
+
 flash_attention.launches = 0
 flash_decode.launches = 0
 ssm_scan.launches = 0
+moe_combine.launches = 0
+moe_uncombine.launches = 0
 
 
 # FLOPs of each kernel call as ``torch.utils.flop_counter`` counts them:
@@ -246,7 +323,7 @@ def _kernel_flops(schema: str):
 def _register_flop_formulas():
     from torch.utils.flop_counter import register_flop_formula
     for name in ("flash_attention", "flash_decode", "flash_decode_lse",
-                 "ssm_scan"):
+                 "ssm_scan", "moe_combine", "moe_uncombine"):
         register_flop_formula(getattr(torch.ops.repro_torch, name))(
             _kernel_flops(f"repro_torch::{name}"))
 

@@ -197,11 +197,12 @@ def register_steps(prof, cfg: ModelConfig, opts: T.ModelOptions, params,
                    max_len: int, prefill_fn, decode_fn) -> tuple:
     """Export the prefill and decode steps at these inputs, bind the
     kernels' interiors at the path's shapes to their ``custom-call`` ops
+    (the MoE combine's at each step's own, ``kernels.graph_structures``)
     and register both modules with ``prof`` (with their cost).  Returns
     (prefill module id, decode module id, {step: op count, custom-calls
     bound, export and registration seconds, cost})."""
     from repro_torch.core import export
-    from repro_torch.kernels import kernel_structures
+    from repro_torch.kernels import graph_structures, kernel_structures
     structures = kernel_structures(cfg, batch, prompt_len, max_len,
                                    ssm_chunk=opts.ssm_chunk)
     steps = (("prefill", prefill_fn, (params, batch_in), {}),
@@ -210,9 +211,12 @@ def register_steps(prof, cfg: ModelConfig, opts: T.ModelOptions, params,
     mids, info = [], {}
     for name, fn, args, kwargs in steps:
         t0 = time.perf_counter()
-        module = export.module_from_export(
-            name, export.export_step(fn, args, kwargs))
-        bound = sum(module.bind_kernel_structure(ks) for ks in structures)
+        program = export.export_step(fn, args, kwargs)
+        module = export.module_from_export(name, program)
+        combine = tuple(ks for ks in graph_structures(program.graph_module)
+                        if ks.name == "moe_combine")
+        bound = sum(module.bind_kernel_structure(ks)
+                    for ks in structures + combine)
         cost = export.cost(module)
         mids.append(prof.register_structure(name, module, cost))
         info[name] = dict(ops=len(module.all_ops()), custom_calls=bound,

@@ -7,7 +7,10 @@ cf) are dropped (Switch/GShard semantics); slots are assigned in
 token-major order over the flattened (T * top_k) assignments, so the same
 tokens are dropped as in the reference.  The aux load-balance loss is the
 Switch one.  The expert products are plain batched matmuls: the reference
-computes them outside any Pallas kernel.
+computes them outside any Pallas kernel.  The gated combine is one custom
+op, ``kernels.ops.moe_combine``: on the CPU the reference's arithmetic,
+on the card a kernel whose backward writes each kept slot's gradient once
+(``kernels/moe_combine.py``).
 
 Expert parallelism (``mesh_args``) runs the reference's ``shard_map``
 path with explicit collectives over a ``model`` mesh axis (DESIGN.md §5):
@@ -38,6 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import scope
 from repro_torch.distributed import shardmap_compat as smc
+from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init
 
 # device -> int64 (routed, kept, largest load): sums, sums, a maximum
@@ -164,15 +168,11 @@ def _local_moe(x, wr, w1, w3, w2, *, n_experts: int, top_k: int,
     g = F.silu(torch.bmm(expert_in, w1))
     u = torch.bmm(expert_in, w3)
     eo = torch.bmm(g * u, w2)                                 # (E_loc, C, d)
-    out_flat = torch.cat([eo.reshape(e_loc * capacity, d),
-                          eo.new_zeros((1, d))], dim=0)
 
-    # gated combine in fp32, one expert slot of each token at a time
-    contrib = out_flat[slot].float().reshape(T, top_k, d)
-    w = gates * keep.reshape(T, top_k)
-    y = torch.zeros((T, d), dtype=torch.float32, device=x.device)
-    for j in range(top_k):
-        y = y + contrib[:, j] * w[:, j, None]
+    # gated combine in fp32, each token's expert slots in order; the dump
+    # row adds nothing (one kernel each way on the card)
+    y = ops.moe_combine(eo.reshape(e_loc * capacity, d), slot,
+                        gates * keep.reshape(T, top_k))
     if stationary:
         # partial f-slices (fsdp) and partial experts (model) merged in
         # one reduction, then this shard's tokens sliced back out

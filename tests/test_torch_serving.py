@@ -112,7 +112,10 @@ def test_serve_windows_match_reference(name, tmp_path):
 def test_serve_writes_measurement_beside_serving_profiles(tmp_path):
     """With serving=, the steps' structure (ops, custom-calls bound,
     export seconds) lands in measurement.json in the profiler's
-    directory; serving= and profile_dir= together are refused."""
+    directory; serving= and profile_dir= together are refused.  Each of
+    reduced granite's two layers has two custom-calls a step: flash
+    (prefill) or decode attention, and the MoE combine, bound at that
+    step's own shapes."""
     cfg = get_config("granite-moe-1b-a400m").reduced()
     with pytest.raises(ValueError, match="serving= or profile_dir="):
         serve_mod.serve(cfg, device="cpu", serving=object(),
@@ -126,8 +129,16 @@ def test_serve_writes_measurement_beside_serving_profiles(tmp_path):
         steps = json.load(f)["steps"]
     assert set(steps) == {"prefill", "decode_step"}
     for info in steps.values():
-        assert info["ops"] > 0 and info["custom_calls"] == 2
+        assert info["ops"] > 0 and info["custom_calls"] == 4
         assert info["seconds"] > 0
+    combines = {}
+    for mid, module in sp.profiler._modules.items():
+        bound = [ks for ks in module.kernel_structures().values()
+                 if ks.name == "moe_combine"]
+        assert len(bound) == 2
+        combines[sp.profiler._module_names[mid]] = bound[0]
+    assert combines["prefill"].total_bytes > \
+        combines["decode_step"].total_bytes > 0
 
 
 class StubProfiler:
