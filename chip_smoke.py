@@ -67,6 +67,14 @@ alone, ``MAMBA_PATH``) at 6 of 32.  Phases, each of which raises
    ``launch.specs.train_memory``, leaves 2 GiB of the card free), timed
    as in 4, its ``torch.cuda.max_memory_allocated`` held to the reckoning
    within 2 GiB;
+3c. serve granite-4.0-h-small (the port's own configuration: Mamba-2
+   mixers at state 128 beside NoPE GQA and a shared-expert MoE) at its
+   published widths and depth with 18 of its 72 experts held, alone on the
+   card (``granite4h_path``): one batch of 2 x 16384 prompts and 16
+   tokens at exact launch counts (36 SSD scans and 4 flash prefills a
+   prefill, 4 flash decodes a decode step), the decode logits through the
+   mixed cache held to the plain reference's full forward (its scan at
+   state 128 is timed with the other kernels, before 3b);
 4. time a train step of qwen2-1.5b, hymba-1.5b, granite-moe-1b-a400m,
    xlstm-125m and the MAMBA path at full width under torch.profiler
    (host wall, device busy, idle share, tokens/s, the kernels' share) on
@@ -276,6 +284,13 @@ CUT_DEPTH = {"qwen2-1.5b": 4, "granite-moe-1b-a400m": 4, "hymba-1.5b": 4,
 # and under the port's profiler at 6 layers (its export costs scale with
 # layers)
 MAMBA_PATH = "hymba-1.5b:mamba"
+# granite-4.0-h-small as one card of a four-card expert split holds it:
+# 2 x 16384 prompts, 16 decode steps; the capacity admits every
+# assignment in this path (a decode step's capacity differs from a full
+# forward's otherwise), so decode can be held to the reference's forward
+GRANITE4H = "granite-4.0-h-small"
+G4H_PROMPT, G4H_BATCH, G4H_DECODE, G4H_HELD = 16384, 2, 16, 18
+G4H_LOGIT_TOL = 0.035    # the prefill cells' logit_err limit
 MAMBA_PROFILED_LAYERS = 6
 
 
@@ -635,7 +650,14 @@ def check_kernels() -> tuple:
             (2, 256, 4, 64, 16, 64, True, -20.0),
             (2, 256, 7, 64, 16, 64, True, None),
             (1, 1576, 25, 64, 16, 64, True, None),
-            (1, 500, 2, 120, 50, 225, True, None)]:
+            (1, 500, 2, 120, 50, 225, True, None),
+            # state 128 (granite-4.0-h): two heads a block at chunk 64, the
+            # plan's halved chunk (256 -> 128, one head) under a strong
+            # decay, hd 128 (256 -> 64), and the cell's shape
+            (2, 1024, 8, 64, 128, 64, True, None),
+            (1, 300, 3, 64, 128, 256, True, -20.0),
+            (1, 500, 2, 128, 128, 256, True, None),
+            (2, 16384, 128, 64, 128, 64, False, None)]:
         xv, ld, Bm, Cm, h0 = _ssm_inputs(gen, b, s, nh, hd, st, decay,
                                          with_h0)
         y, hf = ops.ssm_scan(xv, ld, Bm, Cm, h0, chunk)
@@ -1951,6 +1973,118 @@ def run_frontend(cfg, params, seq: int) -> dict:
                 decode_input="embed" if frames else "token")
 
 
+def _g4h_model(cfg) -> dict:
+    """The reference's model description of ``cfg`` (granite_hybrid)."""
+    return {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+            "head_dim": cfg.head_dim, "block_pattern": list(cfg.block_pattern),
+            "mamba_heads": cfg.mamba_heads,
+            "mamba_head_dim": cfg.mamba_head_dim,
+            "mamba_groups": 1, "ssm_state": cfg.ssm_state,
+            "conv_width": 4, "d_ff": cfg.d_ff, "shared_ff": cfg.shared_ff,
+            "vocab": cfg.vocab,
+            "moe": {"n_experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+                    "capacity_factor": cfg.moe.capacity_factor,
+                    "held": cfg.experts_held},
+            "embedding_multiplier": cfg.embedding_multiplier,
+            "residual_multiplier": cfg.residual_multiplier,
+            "attention_multiplier": cfg.attention_multiplier,
+            "logits_scaling": cfg.logits_scaling,
+            "rms_norm_eps": cfg.norm_eps, "tie_word_embeddings": True,
+            "dtype": cfg.dtype}
+
+
+def granite4h_path(card: str) -> dict:
+    """granite-4.0-h-small at its published widths and depth with 18 of
+    72 experts held, alone on the card: ``serve`` of one batch of 2 x
+    16384 prompts and 16 generated tokens at exact launch counts (36 SSD
+    scans and 4 flash prefills a prefill, 4 flash decodes a decode step:
+    two prefills and 17 decode steps with the warm-up; a combine a layer
+    a step); the same prefill
+    and 16 decode steps through the mixed cache (k / v of 4 layers, ssm
+    and the conv carry over xBC of 36), their logits against the plain
+    reference's full forward at those positions (``G4H_LOGIT_TOL``, the
+    prefill cells' logit limit, on each position's relative error), the
+    served tokens the same as the loop's (its scan is timed by
+    ``time_g4h_scan``).  Frees the weights.  Returns {launches,
+    logit_err, peak_bytes, prefill_ms, decode_ms, seconds}."""
+    from hpcbench.reference import granite_hybrid as ref
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import steps
+    base = _config(GRANITE4H)
+    cfg = dataclasses.replace(
+        base, experts_held=G4H_HELD,
+        moe=dataclasses.replace(base.moe, capacity_factor=base.moe.n_experts
+                                / base.moe.top_k))
+    m = _g4h_model(cfg)
+    t0 = time.monotonic()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = ref.make_params(m, 29, "cuda")
+    S, n = G4H_PROMPT, G4H_DECODE
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
+    served, _ = serve_mod.serve(cfg, n_requests=G4H_BATCH, batch=G4H_BATCH,
+                                prompt_len=S, gen_len=n + 1, seed=29,
+                                params=params, device="cuda")
+    launches = {name: getattr(ops, name).launches for name in KERNELS}
+    n_mamba = cfg.blocks.count("mamba")
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(ssm_scan=2 * n_mamba,
+                flash_attention=2 * (cfg.n_layers - n_mamba),
+                flash_decode=(n + 1) * (cfg.n_layers - n_mamba),
+                moe_combine=(2 + n + 1) * cfg.n_layers)
+    if launches != want:
+        raise AssertionError(f"{GRANITE4H}: launch counts {launches}, "
+                             f"expected {want}")
+    # serve's prompts, then the loop it runs, with the logits kept
+    toks = torch.from_numpy(np.random.default_rng(29).integers(
+        0, cfg.vocab, (G4H_BATCH, S), np.int32)).to("cuda", torch.long)
+    opts = _serve_opts(S)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits, cache = steps.make_prefill_step(cfg, opts)(params,
+                                                       {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t1) * 1e3
+    cache = serve_mod._grow_cache(cache, S + n, S)
+    decode = steps.make_decode_step(cfg, opts)
+    outs, seq, tok = [logits], toks, logits.argmax(-1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for t in range(n):
+        seq = torch.cat([seq, tok[:, None]], dim=1)
+        logits, cache = decode(params, cache, S + t, token=tok)
+        outs.append(logits)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t2) * 1e3 / n
+    got = torch.stack(outs, 1)
+    if not torch.equal(got.argmax(-1), served):
+        raise AssertionError(f"{GRANITE4H}: serve's tokens are not the "
+                             f"loop's")
+    peak = torch.cuda.max_memory_allocated()
+    del cache, outs, logits
+    torch.cuda.empty_cache()
+    ref.precise()
+    want_logits = ref.forward(params, m, seq, ref.Numerics(), last=n + 1)
+    err = ((got.double() - want_logits.double()).norm(dim=-1)
+           / want_logits.double().norm(dim=-1))
+    if not bool(torch.isfinite(err).all()) \
+            or float(err.max()) > G4H_LOGIT_TOL:
+        raise AssertionError(f"{GRANITE4H}: decode logits against the "
+                             f"reference's forward, relative error by "
+                             f"position {err.max(0).values.tolist()}")
+    del params, want_logits
+    torch.cuda.empty_cache()
+    out = dict(launches=launches, logit_err=err.max(0).values.tolist(),
+               peak_bytes=peak, prefill_ms=prefill_ms, decode_ms=decode_ms,
+               seconds=time.monotonic() - t0)
+    print(f"{GRANITE4H} path ({card}): {json.dumps(out)}", flush=True)
+    return out
+
+
 def serve_plain(cfg, params, prompt: int) -> dict:
     """The main path without a profiler: ``serve`` with every kernel
     launch counter set to 0 just before and read just after, exact
@@ -2025,6 +2159,24 @@ def time_big_kernels() -> dict:
                 time_path(name, seq, label)
         torch.cuda.empty_cache()
     return out
+
+
+def time_g4h_scan(card: str) -> dict:
+    """The SSD scan at granite-4.0-h-small's serve shape (state 128,
+    serve's chunk) timed with the other kernels, before any window of
+    whole steps: timed after the single-card configurations, windows of
+    its plain version lost a call's records of some kernels in every
+    window (an H100 at 700 W).  Returns the kernel's times."""
+    cfg = _config(GRANITE4H)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    t, calls = _timed(*_ssm_fns(gen, G4H_BATCH, G4H_PROMPT, cfg.mamba_heads,
+                                cfg.mamba_head_dim, cfg.ssm_state,
+                                _serve_opts(G4H_PROMPT).ssm_chunk))
+    torch.cuda.empty_cache()
+    print(f"{GRANITE4H} ssm_scan ({card}): device {json.dumps(t)}; "
+          f"back-to-back call {json.dumps(calls)}", flush=True)
+    return t
 
 
 def time_decode_past_a_tile() -> dict:
@@ -3841,12 +3993,15 @@ def main() -> int:
     print(f"moe_combine and moe_uncombine at granite.train1k's shape "
           f"({card}), by drop share: {json.dumps(time_combine_cell())}",
           flush=True)
+    g4h_scan = time_g4h_scan(card)
     phase("kernel timings")
     # the reference's single-card configurations, one at a time, before
     # the four models below are allocated (qwen3-32b's weights alone are
     # 65.5 GB) and before any profiled serve
     big = {name: big_path(name, card) for name in BIG_PATHS}
     phase("single-card configurations")
+    g4h = granite4h_path(card)
+    phase(f"{GRANITE4H} path")
     # their training, alone on the card, before the four models below are
     # allocated (yi-6b's reckoned peak is most of the card)
     big_steps = big_training_timings(card)
@@ -3913,6 +4068,11 @@ def main() -> int:
                     name=kname, path=path, route="cuda",
                     source=SOURCES[kname][0], replaces=SOURCES[kname][1],
                     launches=launches[kname], max_abs_err=errs[kname], **t))
+    kernels.append(dict(
+        name="ssm_scan", path=GRANITE4H, route="cuda",
+        source=SOURCES["ssm_scan"][0], replaces=SOURCES["ssm_scan"][1],
+        launches=g4h["launches"]["ssm_scan"], max_abs_err=errs["ssm_scan"],
+        **g4h_scan))
     for name, run in train_runs.items():
         for kname, (t, _) in train_times[name].items():
             kernels.append(dict(

@@ -11,6 +11,14 @@ llama4-maverick-400b-a17b with a shared expert every second layer),
 xLSTM (xlstm-125m) and the two stub frontends: vlm patch embeddings
 before text (llava-next-mistral-7b) and audio frame embeddings in place
 of tokens (musicgen-large).
+
+One more is the port's own, with no counterpart in the JAX package:
+granite-4.0-h-small, a ``HybridMoEConfig`` (Mamba-2 mixers beside NoPE
+GQA, each followed by a MoE and a shared expert, with granite's muP
+scalars and a tied head).  Its knobs are fields of that subclass only;
+``ModelConfig`` holds them as class constants at their off values, so
+``dataclasses.asdict`` of the ten shared configurations stays the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -66,6 +74,26 @@ class ModelConfig:
     dtype: str = "bfloat16"
     # --- citation ----------------------------------------------------------
     source: str = ""
+
+    # --- the port's own knobs, off: class constants, not fields (see the
+    # module docstring); ``HybridMoEConfig`` makes them fields ------------
+    mamba_heads = 0             # Mamba-2 heads (0: the mixer is Hymba's)
+    mamba_head_dim = 0
+    shared_ff = 0               # the shared expert's width (0: d_ff)
+    embedding_multiplier = 1.0
+    residual_multiplier = 1.0
+    attention_multiplier = 0.0  # the scores' scale (0: head_dim ** -0.5)
+    logits_scaling = 1.0        # logits are divided by it
+    use_rope = True
+    tie_embeddings = False
+    norm_eps = 1e-6
+    experts_held = 0            # experts this device holds (0: all)
+
+    @property
+    def mamba2(self) -> bool:
+        """A MAMBA entry is a Mamba-2 mixer with heads of its own,
+        followed by the FFN; otherwise Hymba's mixer alone."""
+        return self.mamba_heads > 0
 
     @property
     def blocks(self) -> Tuple[str, ...]:
@@ -164,6 +192,87 @@ class ModelConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class HybridMoEConfig(ModelConfig):
+    """A port-only hybrid (granite-4.0-h): Mamba-2 mixers (``mamba_heads``
+    of ``mamba_head_dim``, one B/C group, state ``ssm_state``, inner width
+    ``mamba_heads * mamba_head_dim``) and
+    attention layers, each layer followed by the MoE (every layer:
+    ``moe_every`` 1) plus a shared expert of width ``shared_ff``; the muP
+    scalars (embedding times ``embedding_multiplier``, every residual
+    branch times ``residual_multiplier``, scores times
+    ``attention_multiplier``, logits over ``logits_scaling``), rope or
+    none (``use_rope``), a tied head, RMS eps ``norm_eps``.  The device
+    holds the first ``experts_held`` experts of every MoE layer (0: all
+    of them; the shares of a four-card split are alike, so one card
+    stands for each) and routes over all ``moe.n_experts``."""
+    mamba_heads: int = 0
+    mamba_head_dim: int = 0
+    shared_ff: int = 0
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    logits_scaling: float = 1.0
+    use_rope: bool = True
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-6
+    experts_held: int = 0
+
+    @property
+    def mamba_inner(self) -> int:
+        return self.mamba_heads * self.mamba_head_dim
+
+    @property
+    def held(self) -> int:
+        """Experts this device holds."""
+        return self.experts_held or self.moe.n_experts
+
+    def moe_layers(self) -> Tuple[int, ...]:
+        """Every layer, mixer or attention, is followed by the MoE."""
+        return tuple(range(self.n_layers))
+
+    def mamba_params(self) -> int:
+        """One Mamba-2 mixer: in_proj to [z, xBC, dt], the conv over xBC
+        with its bias, dt_bias, A_log, D, the gated norm, out_proj."""
+        d, inner, nh = self.d_model, self.mamba_inner, self.mamba_heads
+        conv = inner + 2 * self.ssm_state
+        return (d * (inner + conv + nh) + conv * 5 + 3 * nh + inner
+                + inner * d)
+
+    def _moe_params(self, experts: float) -> float:
+        d, f = self.d_model, self.d_ff
+        return (experts * 3 * d * f + d * self.moe.n_experts
+                + 3 * d * (self.shared_ff or f))
+
+    def _count(self, experts: float) -> int:
+        d = self.d_model
+        qd, kvd = self.n_heads * self.head_dim, self.n_kv_heads * self.head_dim
+        total = self.vocab * d * (1 if self.tie_embeddings else 2) + d
+        for b in self.blocks:
+            total += (self.mamba_params() if b == MAMBA
+                      else d * (qd + 2 * kvd) + qd * d)
+            total += self._moe_params(experts) + 2 * d
+        return int(round(total))
+
+    def n_params(self) -> int:
+        """The parameters this device holds: its experts of each layer
+        and everything else whole."""
+        return self._count(self.held)
+
+    def n_active_params(self) -> int:
+        """Parameters a token passes through here: top_k of the
+        n_experts routed experts, so top_k * held / n_experts of this
+        device's on average (top_k with every expert held)."""
+        return self._count(self.moe.top_k * self.held / self.moe.n_experts)
+
+    def reduced(self) -> "HybridMoEConfig":
+        """One period at tiny widths, every expert held, in fp32."""
+        r = super().reduced()
+        return dataclasses.replace(
+            r, n_layers=len(self.block_pattern), mamba_heads=4,
+            mamba_head_dim=16, ssm_state=16, shared_ff=48, experts_held=0)
+
+
 # ---------------------------------------------------------------------------
 # Input shapes (the JAX package's ``ShapeConfig`` and ``SHAPES``): train_*
 # is a train step's batch; prefill_* and decode_*/long_* a serving step's.
@@ -196,6 +305,8 @@ def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]
 
 
 _REGISTRY: dict = {}
+# registered configurations with no counterpart in the JAX package
+PORT_ONLY = ("granite-4.0-h-small",)
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
@@ -220,4 +331,5 @@ def _load_all() -> None:
     from repro_torch.configs import (  # noqa: F401
         xlstm_125m, yi_6b, qwen2_1_5b, starcoder2_15b, qwen3_32b,
         llava_next_mistral_7b, llama4_maverick_400b_a17b,
-        granite_moe_1b_a400m, musicgen_large, hymba_1_5b)
+        granite_moe_1b_a400m, musicgen_large, hymba_1_5b,
+        granite_4_0_h_small)

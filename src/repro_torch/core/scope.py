@@ -47,14 +47,18 @@ DECODE = SPAN_PREFIX + "decode"
 # models/transformer.py: the embedding lookup; a block's attention (after
 # its input norm) with its residual add; its dense FFN or MoE FFN with
 # their norm and residual add; the final norm (and, serving, the
-# unembedding); in training the chunked unembedding and cross-entropy
+# unembedding); in training the chunked unembedding and cross-entropy;
+# a Mamba-2 mixer (after its input norm) with its residual add; a shared
+# expert beside a MoE (inside ``MOE``)
 EMBED = SPAN_PREFIX + "embed"
 ATTN = SPAN_PREFIX + "attn"
 FFN = SPAN_PREFIX + "ffn"
 MOE = SPAN_PREFIX + "moe"
 HEAD = SPAN_PREFIX + "head"
 LOSS = SPAN_PREFIX + "loss"
-SPANS = (PREFILL, DECODE, EMBED, ATTN, FFN, MOE, HEAD, LOSS)
+MAMBA = SPAN_PREFIX + "mamba"
+SHARED = SPAN_PREFIX + "shared"
+SPANS = (PREFILL, DECODE, EMBED, ATTN, FFN, MOE, HEAD, LOSS, MAMBA, SHARED)
 
 _OPEN: List[str] = []
 _RANGES = [True]

@@ -70,7 +70,7 @@ constexpr int kPassThreads = 256;   // step 2
 constexpr int kPassAhead = 8;       // chunks step 2 loads ahead
 constexpr int kMaxChunk = 256;
 constexpr int kMaxHD = 128;
-constexpr int kMaxST = 64;
+constexpr int kMaxST = 128;
 constexpr int kMaxHeads = 2;  // heads per block: one per pair of warps
 static_assert(kWarps == 2 * kMaxHeads, "step 3 gives each head two warps");
 constexpr int kMaxSmem = 232448;       // bytes a block may use on an H100
@@ -720,7 +720,7 @@ cudaError_t launch_hd(const Args& a, const Dims& d1, const Dims& d3,
 // (B,nh,hd,st) fp32, workspaces states (B,n_chunks,nh,hd,st) fp32 and
 // decay (B,n_chunks,nh) fp32 with n_chunks = ceil(S / min(chunk, S)); all
 // contiguous, xv 16-byte aligned and Bm/Cm too where st % 8 == 0.
-// hd % 8 == 0, hd <= 128, st <= 64, 1 <= chunk <= 256,
+// hd % 8 == 0, hd <= 128, st <= 128, 1 <= chunk <= 256,
 // 1 <= heads_per_block <= 2, S >= 1.  ldx1/smem1 and ldx3/smem3 are the
 // launch plan's X row stride (bf16) and shared-memory bytes of steps 1
 // and 3; a plan whose bytes are not where the kernels' carve-up ends is
@@ -757,5 +757,6 @@ extern "C" int ssm_scan_fwd_bf16(const void* xv, const void* logdecay,
   const int ks = d1.st_pad / 16;
   return (int)(ks == 1   ? launch_hd<1>(a, d1, d3, smem1, smem3, s)
                : ks == 2 ? launch_hd<2>(a, d1, d3, smem1, smem3, s)
-                         : launch_hd<4>(a, d1, d3, smem1, smem3, s));
+               : ks <= 4 ? launch_hd<4>(a, d1, d3, smem1, smem3, s)
+                         : launch_hd<8>(a, d1, d3, smem1, smem3, s));
 }

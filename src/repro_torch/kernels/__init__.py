@@ -39,7 +39,10 @@ def kernel_structures(cfg, batch: int, prompt_len: int, max_len: int, *,
         works["flash_attention"] = flash_attention.work
         works["decode_attention"] = decode_attention.work
     if any(k in (HYBRID, MAMBA) for k in cfg.blocks):
-        shapes["ssm_scan"] = dict(B=batch, S=prompt_len, nh=h, hd=d,
+        # a Mamba-2 mixer's heads are its own, Hymba's the attention's
+        nh, hd = (cfg.mamba_heads, cfg.mamba_head_dim) if cfg.mamba2 \
+            else (h, d)
+        shapes["ssm_scan"] = dict(B=batch, S=prompt_len, nh=nh, hd=hd,
                                   st=cfg.ssm_state,
                                   chunk=min(ssm_chunk, prompt_len))
         works["ssm_scan"] = ssm_scan.work

@@ -63,7 +63,7 @@ from repro_torch.models.layers import pick_chunk
 
 MAX_CHUNK = 256        # positions per chunk the kernel holds (kMaxChunk)
 MAX_HEAD_DIM = 128     # kMaxHD; the head dim must also be a multiple of 8
-MAX_STATE = 64         # kMaxST
+MAX_STATE = 128        # kMaxST
 MAX_SMEM = 232448      # shared-memory bytes an H100 block may use
 HEADS_PER_BLOCK = 2    # kMaxHeads: one head per pair of warps in step 3
 BAND = 64              # kBand: rows of C B^T a block holds at once
@@ -190,25 +190,32 @@ class Plan:
     decay: tuple          # exp(total) (B, n_chunks, nh) fp32
 
 
+def _fits(c: int, hd: int, st: int, k: int) -> bool:
+    return max(smem_bytes(c, hd, st, k, 1),
+               smem_bytes(c, hd, st, k, 3)) <= MAX_SMEM
+
+
 @functools.lru_cache(maxsize=None)
 def plan(B: int, S: int, nh: int, hd: int, st: int, chunk: int) -> Plan:
     """The launch plan for these shapes, or ValueError where the kernel
     does not take them.  A group is ``HEADS_PER_BLOCK`` heads (at most
-    nh), one where shared memory would not hold more."""
+    nh), one where shared memory would not hold more; where one head does
+    not fit at ``chunk`` either, the chunk is halved until it does (a
+    state past 64 at large chunks: at hd 64 and st 128 a chunk of 256
+    needs 279,552 bytes with one head, 128 takes 158,208).  The chunk does
+    not change the result, up to rounding.  A shape that fitted one head
+    at its chunk keeps that chunk."""
     if B < 1 or S < 1 or nh < 1 or hd % 8 or not 8 <= hd <= MAX_HEAD_DIM \
             or not 1 <= st <= MAX_STATE or not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"ssm_scan kernel: unsupported B={B} S={S} nh={nh} "
                          f"hd={hd} st={st} chunk={chunk}")
     c = min(chunk, S)
+    while c > 1 and not _fits(c, hd, st, 1):
+        c = -(-c // 2)
     k = min(HEADS_PER_BLOCK, nh)
-    while k > 1 and max(smem_bytes(c, hd, st, k, 1),
-                        smem_bytes(c, hd, st, k, 3)) > MAX_SMEM:
+    while k > 1 and not _fits(c, hd, st, k):
         k -= 1
     sm1, sm3 = smem_bytes(c, hd, st, k, 1), smem_bytes(c, hd, st, k, 3)
-    if max(sm1, sm3) > MAX_SMEM:
-        raise ValueError(f"ssm_scan kernel: chunk={c} hd={hd} st={st} with "
-                         f"{k} heads per block needs {max(sm1, sm3)} bytes "
-                         f"of shared memory (at most {MAX_SMEM})")
     n_chunks = -(-S // c)
     n_groups = -(-nh // k)
     return Plan(chunk=c, n_chunks=n_chunks, heads_per_block=k,

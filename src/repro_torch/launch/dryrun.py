@@ -57,8 +57,8 @@ from typing import Dict, Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs import (SHAPES, get_config, list_configs,
-                                 shape_applicable)
+from repro_torch.configs import (PORT_ONLY, SHAPES, get_config,
+                                 list_configs, shape_applicable)
 from repro_torch.core import export
 from repro_torch.core import roofline as roof_mod
 from repro_torch.distributed import sharding as shard_mod
@@ -397,8 +397,9 @@ def main(argv=None):
                          "(each joins its own fake world)")
     args = ap.parse_args(argv)
 
-    archs = list_configs() if (args.all or args.arch is None) \
-        else [args.arch]
+    # --all: the reference's cells (a port-only configuration by name)
+    archs = [a for a in list_configs() if a not in PORT_ONLY] \
+        if (args.all or args.arch is None) else [args.arch]
     shapes = list(SHAPES) if (args.all or args.shape is None) \
         else [args.shape]
     meshes = {"single": [False], "multi": [True],

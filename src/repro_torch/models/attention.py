@@ -69,7 +69,10 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def project_qkv(params, x, cfg, positions):
-    """x: (B,S,d) -> q (B,S,H,Dh), k/v (B,S,Hkv,Dh) with rope applied."""
+    """x: (B,S,d) -> q (B,S,H,Dh), k/v (B,S,Hkv,Dh) with rope applied
+    (none where ``cfg.use_rope`` is off) and q times
+    ``attention_multiplier * Dh ** 0.5`` where the configuration sets
+    that scale."""
     q = _proj(x, params["wq"])
     k = _proj(x, params["wk"])
     v = _proj(x, params["wv"])
@@ -80,6 +83,12 @@ def project_qkv(params, x, cfg, positions):
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
+    if cfg.attention_multiplier:
+        # the kernels scale scores by head_dim ** -0.5: the configuration's
+        # scale is folded into q
+        q = q * (cfg.attention_multiplier * cfg.head_dim ** 0.5)
+    if not cfg.use_rope:
+        return q, k, v
     cos, sin = rope_freqs(positions, cfg.head_dim, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)

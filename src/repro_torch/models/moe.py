@@ -24,11 +24,21 @@ the partial outputs psum'd over (``fsdp``, ``model``) (``stationary``).
 The capacity is per shard, from the tokens a shard routes (``t_loc``),
 so with data > 1 it drops other tokens than the one-device path does.
 
+On one device the layer may hold only some of the experts
+(``moe_ffn(..., experts=(first, held))``: the device's share of an expert
+split, as a rank of the expert-parallel path holds its ``E_loc``): it
+routes every token over all ``n_experts``, computes the part of the
+result that experts [first, first + held) give, and drops the other
+assignments as the mesh path drops those of another shard's experts; no
+exchange, and nothing stands in for the absent experts.  The capacity is
+the whole layer's, from all T * top_k assignments.
+
 While torch.profiler records (``core.scope.recording()``) every
 ``_local_moe`` call counts its dispatch into a device-side accumulator,
 as ``kernels.ops`` counts launches: the assignments routed to this
-shard's experts (T * top_k without a mesh), those dropped (over their
-expert's capacity: sent to the dump row) and the largest expert's load.
+shard's experts (T * top_k without a mesh and with every expert held),
+those dropped (over their expert's capacity: sent to the dump row), the
+largest expert's load and every assignment over all experts (T * top_k).
 ``dispatch_counts()`` reads them, and is the only place that syncs;
 untraced, the path launches nothing for them.
 """
@@ -44,7 +54,8 @@ from repro_torch.distributed import shardmap_compat as smc
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init
 
-# device -> int64 (routed, kept, largest load): sums, sums, a maximum
+# device -> int64 (routed, kept, largest load, routed over every expert):
+# sums, sums, a maximum, sums
 _COUNTS: dict = {}
 _CALLS = {"calls": 0, "capacity": 0}
 
@@ -54,10 +65,11 @@ def _count(mine, keep, counts, capacity: int) -> None:
     device."""
     acc = _COUNTS.get(mine.device)
     if acc is None:
-        acc = _COUNTS[mine.device] = torch.zeros(3, dtype=torch.int64,
+        acc = _COUNTS[mine.device] = torch.zeros(4, dtype=torch.int64,
                                                  device=mine.device)
     acc[:2] += torch.stack((mine.sum(), keep.sum()))
-    torch.maximum(acc[2:], counts[-1].max(), out=acc[2:])
+    torch.maximum(acc[2:3], counts[-1].max(), out=acc[2:3])
+    acc[3] += mine.numel()
     _CALLS["calls"] += 1
     _CALLS["capacity"] = capacity
 
@@ -66,13 +78,16 @@ def dispatch_counts() -> dict:
     """The MoE dispatch's counts since ``reset_dispatch_counts``, as
     ints: ``calls`` (each ``_local_moe`` call while recording, the
     remat's recompute in the backward included), ``routed`` and
-    ``dropped`` assignments summed over the calls, ``max_load`` the
-    largest expert's assignments in any one call (before its capacity),
-    ``capacity`` a call's slots an expert (the last call's)."""
-    out = dict(_CALLS, routed=0, dropped=0, max_load=0)
+    ``dropped`` assignments summed over the calls (``routed``: to this
+    shard's or device's experts), ``routed_all`` every assignment over all
+    experts (T * top_k a call), ``max_load`` the largest expert's
+    assignments in any one call (before its capacity), ``capacity`` a
+    call's slots an expert (the last call's)."""
+    out = dict(_CALLS, routed=0, dropped=0, max_load=0, routed_all=0)
     for acc in _COUNTS.values():
-        routed, kept, load = acc.tolist()
+        routed, kept, load, routed_all = acc.tolist()
         out["routed"] += routed
+        out["routed_all"] += routed_all
         out["dropped"] += routed - kept
         out["max_load"] = max(out["max_load"], load)
     return out
@@ -97,28 +112,31 @@ class MoEMeshArgs(NamedTuple):
 
 def init_moe_params(gen: torch.Generator, d_model: int, d_ff: int,
                     n_experts: int, dtype: torch.dtype, *,
-                    lead: tuple = ()) -> dict:
-    """Router (float32 whatever ``dtype`` is, as in the JAX package) and
-    the experts' stacked SwiGLU weights, drawn from ``gen``; ``lead``
-    stacks them (the period axis)."""
+                    lead: tuple = (), held: Optional[int] = None) -> dict:
+    """Router (float32 whatever ``dtype`` is, as in the JAX package) over
+    all ``n_experts`` and the stacked SwiGLU weights of ``held`` experts
+    (by default all), drawn from ``gen``; ``lead`` stacks them (the period
+    axis)."""
+    e = n_experts if held is None else held
     return {
         "router": dense_init(gen, (d_model, n_experts), torch.float32,
                              lead=lead),
-        "w1": dense_init(gen, (n_experts, d_model, d_ff), dtype, lead=lead),
-        "w3": dense_init(gen, (n_experts, d_model, d_ff), dtype, lead=lead),
-        "w2": dense_init(gen, (n_experts, d_ff, d_model), dtype, lead=lead),
+        "w1": dense_init(gen, (e, d_model, d_ff), dtype, lead=lead),
+        "w3": dense_init(gen, (e, d_model, d_ff), dtype, lead=lead),
+        "w2": dense_init(gen, (e, d_ff, d_model), dtype, lead=lead),
     }
 
 
 def _local_moe(x, wr, w1, w3, w2, *, n_experts: int, top_k: int,
-               capacity: int, e_loc: Optional[int] = None,
+               capacity: int, e_loc: Optional[int] = None, e_first: int = 0,
                model_axis: Optional[str] = None,
                fsdp_axis: Optional[str] = None, dp_axes: tuple = (),
                weight_mode: str = "gather") -> tuple:
     """Per-shard MoE.  x: (T_loc, d) local tokens; wr (d, E) fp32; expert
     weights the local slices (E_loc, d[/fsdp], f) for "gather", (E_loc, d,
     f/fsdp) for "stationary"; the collectives name axes of the bound mesh
-    (``shardmap_compat``).  Without axes it is the one-device MoE.
+    (``shardmap_compat``).  Without axes it is the one-device MoE, over
+    experts [e_first, e_first + e_loc) (by default all of them).
     Returns (y (T_loc, d) in x.dtype, aux loss fp32 scalar)."""
     e_loc = n_experts if e_loc is None else e_loc
     stationary = weight_mode == "stationary" and fsdp_axis is not None
@@ -143,7 +161,8 @@ def _local_moe(x, wr, w1, w3, w2, *, n_experts: int, top_k: int,
     aux = n_experts * torch.sum(probs.mean(dim=0) * load)
 
     # this shard's experts; the others' slots go to the dump row
-    e0 = smc.axis_index(model_axis) * e_loc if model_axis is not None else 0
+    e0 = smc.axis_index(model_axis) * e_loc if model_axis is not None \
+        else e_first
     le = eidx.reshape(-1) - e0                                # (T*k,)
     mine = (le >= 0) & (le < e_loc)
     le = torch.where(mine, le, torch.full_like(le, e_loc))
@@ -216,8 +235,14 @@ def _mesh_layout(mesh_args: MoEMeshArgs, B: int, S: int, d: int, d_ff: int,
 
 def moe_ffn(params, x, *, n_experts: int, top_k: int,
             capacity_factor: float, mesh_args=None,
-            d_ff: Optional[int] = None) -> tuple:
+            d_ff: Optional[int] = None,
+            experts: Optional[tuple] = None) -> tuple:
     """MoE FFN.  x: (B, S, d).  Returns (y (B, S, d), aux scalar).
+
+    ``experts`` (one device only): (first, held), the experts whose
+    weights ``params`` hold (``w1`` etc. of ``held`` experts); the router
+    keeps every expert's column, and the result is those experts' part
+    (the module docstring).  None: every expert.
 
     With ``mesh_args`` (a mesh): expert parallelism, the per-shard body of
     the reference's ``shard_map``, on local blocks inside a bound mesh
@@ -229,10 +254,15 @@ def moe_ffn(params, x, *, n_experts: int, top_k: int,
     if mesh_args is None or getattr(mesh_args, "mesh", None) is None:
         B, S, d = x.shape
         cap = max(top_k, int(B * S * top_k / n_experts * capacity_factor))
+        first, held = experts if experts is not None else (0, n_experts)
         y, aux = _local_moe(x.reshape(B * S, d), params["router"],
                             params["w1"], params["w3"], params["w2"],
-                            n_experts=n_experts, top_k=top_k, capacity=cap)
+                            n_experts=n_experts, top_k=top_k, capacity=cap,
+                            e_loc=held, e_first=first)
         return y.reshape(B, S, d), aux
+    if experts is not None:
+        raise ValueError("moe_ffn: an expert share is for one device; a "
+                         "mesh splits the experts itself")
     n_dp = mesh_args.mesh.axis_size(mesh_args.dp_axes)
     b, S, d = x.shape
     if d_ff is None:

@@ -8,6 +8,18 @@ each followed by a dense SwiGLU or (ATTN and SWA with ``use_moe``) a
 mixture-of-experts FFN; MAMBA (the mamba mixer alone) and the xLSTM
 blocks MLSTM and SLSTM, which carry their own projections and no FFN.
 
+A ``HybridMoEConfig`` (granite-4.0-h, the port's own) changes MAMBA and
+ATTN blocks: a MAMBA block is the Mamba-2 mixer (``ssm.mamba2_forward``)
+followed, as every attention block, by the MoE over the device's held
+experts (``experts_held``) plus a shared expert of width ``shared_ff``;
+residual branches are scaled by ``residual_multiplier``, the embedding
+by ``embedding_multiplier``, scores by ``attention_multiplier`` (folded
+into q), attention runs with no rope where ``use_rope`` is off, norms
+take ``norm_eps``, the head is the embedding's transpose and the logits
+are divided by ``logits_scaling``.  Its cache holds the k/v of the
+attention layers and the ``ssm``/``conv`` states of the mixers side by
+side, the latter sized by the Mamba-2 widths.
+
 Layers are grouped into *periods* (one repetition of the block pattern)
 and parameters are stacked over periods, keeping the JAX package's
 parameter tree (``{"embed", "unembed", "final_norm", "layers": {"e0":
@@ -35,7 +47,9 @@ construction.
 While torch.profiler records, the embedding, each block's attention and
 FFN or MoE, the head and the loss are spans (``core.scope.span``:
 ``rt.embed``, ``rt.attn``, ``rt.ffn`` / ``rt.moe``, ``rt.head``,
-``rt.loss``); the MAMBA and xLSTM blocks have none.
+``rt.loss``), and so are a Mamba-2 mixer (``rt.mamba``) and a shared
+expert beside a MoE (``rt.shared``, inside ``rt.moe``); Hymba's MAMBA and
+the xLSTM blocks have none.
 """
 from __future__ import annotations
 
@@ -186,16 +200,31 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _init_mamba(gen, cfg: ModelConfig, dtype, n: int) -> dict:
+    if cfg.mamba2:
+        return ssm_mod.init_mamba2_params(
+            gen, cfg.d_model, cfg.mamba_heads, cfg.mamba_head_dim,
+            cfg.ssm_state, dtype, lead=(n,))
     return ssm_mod.init_ssm_params(gen, cfg.d_model, cfg.n_heads,
                                    cfg.head_dim, cfg.ssm_state, dtype,
                                    lead=(n,))
 
 
+def _norm(x, w, cfg: ModelConfig):
+    return rms_norm(x, w, cfg.norm_eps)
+
+
+def _residual(x, y, cfg: ModelConfig):
+    """x + y, the branch scaled by the configuration's residual
+    multiplier where it has one."""
+    m = cfg.residual_multiplier
+    return x + y if m == 1.0 else x + y * m
+
+
 # ---------------------------------------------------------------------------
 # Parameter init
 # ---------------------------------------------------------------------------
-def _init_ffn(gen, cfg: ModelConfig, dtype, n: int) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+def _init_ffn(gen, cfg: ModelConfig, dtype, n: int, f: int = 0) -> dict:
+    d, f = cfg.d_model, f or cfg.d_ff
     return {"w1": dense_init(gen, (d, f), dtype, lead=(n,)),
             "w3": dense_init(gen, (d, f), dtype, lead=(n,)),
             "w2": dense_init(gen, (f, d), dtype, lead=(n,))}
@@ -214,23 +243,26 @@ def _init_entry(gen, spec: EntrySpec, cfg: ModelConfig, dtype, n: int):
                                                  lead=(n,))
         return p
     if spec.kind == MAMBA:
-        # the mixer alone: no FFN, even where ``use_moe`` marks the layer
+        # Hymba's mixer alone: no FFN, even where ``use_moe`` marks the
+        # layer; a Mamba-2 mixer is followed by the MoE as attention is
         p["mamba"] = _init_mamba(gen, cfg, dtype, n)
-        return p
-    if spec.kind not in (ATTN, SWA, HYBRID):
+        if not cfg.mamba2:
+            return p
+    elif spec.kind not in (ATTN, SWA, HYBRID):
         raise ValueError(spec.kind)
-    p["attn"] = attn_mod.init_attn_params(gen, cfg, dtype, lead=(n,))
+    else:
+        p["attn"] = attn_mod.init_attn_params(gen, cfg, dtype, lead=(n,))
     if spec.kind == HYBRID:
         p["mamba"] = _init_mamba(gen, cfg, dtype, n)
         p["beta"] = torch.ones((n, 2), dtype=torch.float32,
                                device=gen.device)
     p["ln2"] = torch.ones((n, d), **ones)
     if spec.use_moe and spec.kind != HYBRID:
-        p["moe"] = moe_mod.init_moe_params(gen, d, cfg.d_ff,
-                                           cfg.moe.n_experts, dtype,
-                                           lead=(n,))
+        p["moe"] = moe_mod.init_moe_params(
+            gen, d, cfg.d_ff, cfg.moe.n_experts, dtype, lead=(n,),
+            held=cfg.experts_held or None)
         if cfg.moe.shared_expert:
-            p["shared"] = _init_ffn(gen, cfg, dtype, n)
+            p["shared"] = _init_ffn(gen, cfg, dtype, n, cfg.shared_ff)
     elif cfg.d_ff:
         p["ffn"] = _init_ffn(gen, cfg, dtype, n)
     return p
@@ -248,6 +280,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
                                  device=gen.device),
         "layers": {},
     }
+    if cfg.tie_embeddings:      # the head is the embedding's transpose
+        del params["unembed"]
     for i, spec in enumerate(entries):
         params["layers"][f"e{i}"] = _init_entry(gen, spec, cfg, dtype,
                                                 n_periods)
@@ -262,7 +296,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Zero cache tree, stacked over periods: {'e0': {...}, ...}.
     Attention layers hold ``k``/``v``; window layers (SWA, HYBRID) a ring
     of min(window, max_len) slots.  HYBRID and MAMBA hold the mamba state
-    ``ssm`` (fp32) and the conv carry ``conv`` (model dtype); MLSTM the
+    ``ssm`` (fp32) and the conv carry ``conv`` (model dtype; a Mamba-2
+    mixer's over xBC, at its own heads and widths); MLSTM the
     matrix state ``H`` (fp32, the normaliser as its last value column) and
     the stabiliser ``m`` at -1e30; SLSTM ``c``, ``n``, ``h`` (fp32 zeros) and
     ``m`` at -1e30, as in the JAX package."""
@@ -280,11 +315,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                              cfg.head_dim), dtype=dtype, device=device)
             c.update(k=k, v=torch.zeros_like(k))
         if spec.kind in (HYBRID, MAMBA):
-            c["ssm"] = torch.zeros((n_periods, batch, cfg.n_heads,
-                                    cfg.head_dim, cfg.ssm_state), **f32)
+            nh, hd = (cfg.mamba_heads, cfg.mamba_head_dim) if cfg.mamba2 \
+                else (cfg.n_heads, cfg.head_dim)
+            # a Mamba-2 mixer's conv runs over xBC
+            width = nh * hd + (2 * cfg.ssm_state if cfg.mamba2 else 0)
+            c["ssm"] = torch.zeros((n_periods, batch, nh, hd,
+                                    cfg.ssm_state), **f32)
             c["conv"] = torch.zeros((n_periods, batch, ssm_mod.CONV_W - 1,
-                                     cfg.n_heads * cfg.head_dim),
-                                    dtype=dtype, device=device)
+                                     width), dtype=dtype, device=device)
         if spec.kind == MLSTM:
             dv = 2 * d // cfg.n_heads
             c["H"] = torch.zeros((n_periods, batch, cfg.n_heads,
@@ -317,7 +355,8 @@ def _moe(p, x, cfg, ctx):
     kw = dict(n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
               capacity_factor=cfg.moe.capacity_factor)
     if ctx is None:
-        return moe_mod.moe_ffn(p["moe"], x, **kw)
+        share = (0, cfg.experts_held) if cfg.experts_held else None
+        return moe_mod.moe_ffn(p["moe"], x, experts=share, **kw)
     args = ctx.plan.moe_args()
     if args is not None:
         return moe_mod.moe_ffn(p["moe"], x, mesh_args=args, d_ff=cfg.d_ff,
@@ -338,9 +377,10 @@ def _apply_ffn(p, x, cfg, ctx=None, specs=None):
     if "moe" in p:
         y, aux = _moe(p, x, cfg, ctx)
         if "shared" in p:
-            y = y + _swiglu(p["shared"], x,
-                            _tp(specs["shared"], ctx, "w1") if specs
-                            else None)
+            with scope.span(scope.SHARED):
+                y = y + _swiglu(p["shared"], x,
+                                _tp(specs["shared"], ctx, "w1") if specs
+                                else None)
         return y, aux
     if "ffn" not in p:
         return torch.zeros_like(x), aux
@@ -365,7 +405,7 @@ def _apply_entry(p, spec: EntrySpec, x, positions, cfg, opts, mode: str,
     place.  On a mesh ``p`` is the period's weights in their compute
     layout and ``specs`` their specs (``_period_params``); ``seq``: the
     decode cache's k/v are this rank's slots of a split sequence."""
-    h = rms_norm(x, p["ln1"])
+    h = _norm(x, p["ln1"], cfg)
     decode = mode == "decode"
     train = mode == "train"
     if spec.kind == MLSTM:
@@ -383,29 +423,39 @@ def _apply_entry(p, spec: EntrySpec, x, positions, cfg, opts, mode: str,
         if train:
             new = None
         return x + y, _write_states(cache, new) if decode else new, 0.0
-    if spec.kind == MAMBA:
+    if spec.kind == MAMBA and not cfg.mamba2:
         y, new = _mamba(p["mamba"], h, cfg, opts, cache if decode else None)
         if train:
             new = None
         return x + y, _write_states(cache, new) if decode else new, 0.0
     window = cfg.window if spec.kind in (SWA, HYBRID) else 0
     tp = _tp(specs["attn"], ctx, "wq", "wk") if specs else None
-    with scope.span(scope.ATTN):
-        y, new_cache = _attention(p["attn"], h, positions, cfg, window,
-                                  opts, mode, cache, cache_pos, tp, seq)
-        if spec.kind == HYBRID:
-            ym, new = _mamba(p["mamba"], h, cfg, opts,
-                             cache if decode else None)
+    if spec.kind == MAMBA:      # Mamba-2, then the FFN below
+        with scope.span(scope.MAMBA):
+            y, new_cache = _mamba(p["mamba"], h, cfg, opts,
+                                  cache if decode else None)
             if decode:
-                _write_states(cache, new)
-            elif not train:
-                new_cache.update(new)
-            beta = p["beta"].to(x.dtype)
-            y = 0.5 * (beta[0] * y + beta[1] * ym)
-        x = x + y
+                new_cache = _write_states(cache, new_cache)
+            elif train:
+                new_cache = None
+            x = _residual(x, y, cfg)
+    else:
+        with scope.span(scope.ATTN):
+            y, new_cache = _attention(p["attn"], h, positions, cfg, window,
+                                      opts, mode, cache, cache_pos, tp, seq)
+            if spec.kind == HYBRID:
+                ym, new = _mamba(p["mamba"], h, cfg, opts,
+                                 cache if decode else None)
+                if decode:
+                    _write_states(cache, new)
+                elif not train:
+                    new_cache.update(new)
+                beta = p["beta"].to(x.dtype)
+                y = 0.5 * (beta[0] * y + beta[1] * ym)
+            x = _residual(x, y, cfg)
     with scope.span(scope.MOE if "moe" in p else scope.FFN):
-        y2, aux = _apply_ffn(p, rms_norm(x, p["ln2"]), cfg, ctx, specs)
-        x = x + y2
+        y2, aux = _apply_ffn(p, _norm(x, p["ln2"], cfg), cfg, ctx, specs)
+        x = _residual(x, y2, cfg)
     return x, new_cache, aux
 
 
@@ -417,6 +467,13 @@ def _mamba(mp, h, cfg, opts, cache=None):
     ssm_state = conv_state = None
     if cache is not None:
         ssm_state, conv_state = cache["ssm"], cache["conv"]
+    if cfg.mamba2:
+        y, (st, cv) = ssm_mod.mamba2_forward(
+            mp, h, n_heads=cfg.mamba_heads, head_dim=cfg.mamba_head_dim,
+            state=cfg.ssm_state, eps=cfg.norm_eps,
+            chunk=opts.ssm_chunk, ssm_state=ssm_state,
+            conv_state=conv_state, use_kernel=opts.use_flash_kernel)
+        return y, {"ssm": st, "conv": cv}
     y, (st, cv) = ssm_mod.mamba_forward(
         mp, h, n_heads=cfg.n_heads, head_dim=cfg.head_dim,
         state=cfg.ssm_state, chunk=opts.ssm_chunk, ssm_state=ssm_state,
@@ -480,6 +537,19 @@ def _top(params, name: str, ctx):
     return smc.gather_spec(params[name], ctx.specs[name])[0]
 
 
+def _head(params, cfg: ModelConfig, ctx):
+    """The unembedding (d, V): the embedding's transpose where the head is
+    tied."""
+    if cfg.tie_embeddings:
+        return _top(params, "embed", ctx).t()
+    return _top(params, "unembed", ctx)
+
+
+def _embed_scaled(x, cfg: ModelConfig):
+    m = cfg.embedding_multiplier
+    return x if m == 1.0 else x * m
+
+
 def embed_inputs(params, cfg: ModelConfig, tokens, embeds, ctx=None):
     """tokens: (B, S_text) integer or None; embeds: (B, S_front, d) or
     None."""
@@ -489,7 +559,8 @@ def embed_inputs(params, cfg: ModelConfig, tokens, embeds, ctx=None):
             parts.append(embeds.to(model_dtype(cfg)))
         if tokens is not None:
             parts.append(_top(params, "embed", ctx)[tokens])
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        return _embed_scaled(x, cfg)
 
 
 def _seq_splits(ctx, cache) -> dict:
@@ -601,12 +672,15 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None, *,
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = _train_stack(params, x, cfg, opts, positions, mesh_args)
     with scope.span(scope.HEAD):
-        return rms_norm(x, _top(params, "final_norm", mesh_args)), aux
+        return _norm(x, _top(params, "final_norm", mesh_args), cfg), aux
 
 
-def _chunk_loss(h, lab, unembed, z_loss: float):
-    """(sum of nll + z-loss, label count) of one sequence chunk."""
+def _chunk_loss(h, lab, unembed, z_loss: float, scaling: float = 1.0):
+    """(sum of nll + z-loss, label count) of one sequence chunk; the
+    logits divided by ``scaling``."""
     logits = (h @ unembed).float()
+    if scaling != 1.0:
+        logits = logits / scaling
     lse = torch.logsumexp(logits, dim=-1)
     # gather the label's logit (no one-hot product: no second (B, c, V)
     # fp32 temporary)
@@ -628,13 +702,14 @@ def lm_loss(params, cfg: ModelConfig, hidden, labels, *,
     the tokens, n_tokens), fp32."""
     S = hidden.shape[1]
     c = pick_chunk(S, opts.loss_chunk)
-    unembed = _top(params, "unembed", mesh_args)
+    unembed = _head(params, cfg, mesh_args)
     loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
     ntok = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(S // c):
         l_i, n_i = checkpoint(_chunk_loss, hidden[:, i * c:(i + 1) * c],
                               labels[:, i * c:(i + 1) * c],
-                              unembed, z_loss, use_reentrant=False)
+                              unembed, z_loss, cfg.logits_scaling,
+                              use_reentrant=False)
         loss = loss + l_i
         ntok = ntok + n_i
     return loss, ntok
@@ -672,10 +747,12 @@ def loss_fn(params, cfg: ModelConfig, batch, *,
                    "loss": nll + 0.01 * aux.detach()}
 
 
-def _unembed_last(params, x, ctx=None):
+def _unembed_last(params, x, cfg: ModelConfig, ctx=None):
     with scope.span(scope.HEAD):
-        h = rms_norm(x[:, -1:], _top(params, "final_norm", ctx))
-        return (h @ _top(params, "unembed", ctx))[:, 0].float()
+        h = _norm(x[:, -1:], _top(params, "final_norm", ctx), cfg)
+        logits = (h @ _head(params, cfg, ctx))[:, 0].float()
+        s = cfg.logits_scaling
+        return logits if s == 1.0 else logits / s
 
 
 def prefill(params, cfg: ModelConfig, tokens=None, embeds=None, *,
@@ -685,7 +762,7 @@ def prefill(params, cfg: ModelConfig, tokens=None, embeds=None, *,
     positions = torch.arange(x.shape[1], device=x.device)
     x, cache = _stack_forward(params, x, cfg, opts, "prefill",
                               positions=positions, ctx=mesh_args)
-    return _unembed_last(params, x, mesh_args), cache
+    return _unembed_last(params, x, cfg, mesh_args), cache
 
 
 def decode_step(params, cfg: ModelConfig, cache, token=None, embed=None,
@@ -699,7 +776,8 @@ def decode_step(params, cfg: ModelConfig, cache, token=None, embed=None,
     """
     with scope.span(scope.EMBED):
         if embed is None:
-            x = _top(params, "embed", mesh_args)[token[:, None]]
+            x = _embed_scaled(_top(params, "embed", mesh_args)
+                              [token[:, None]], cfg)
         else:
             x = embed.to(model_dtype(cfg))
     pos = int(pos)
@@ -708,4 +786,4 @@ def decode_step(params, cfg: ModelConfig, cache, token=None, embed=None,
     x, cache = _stack_forward(params, x, cfg, opts, "decode", cache=cache,
                               cache_pos=pos, positions=positions,
                               ctx=mesh_args)
-    return _unembed_last(params, x, mesh_args), cache
+    return _unembed_last(params, x, cfg, mesh_args), cache

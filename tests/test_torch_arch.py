@@ -17,11 +17,12 @@ import torch
 
 from repro.configs import SHAPES as JAX_SHAPES
 from repro.configs import get_config as jax_get_config
+from repro.configs import list_configs as jax_list_configs
 from repro.launch import specs as jax_specs
 from repro.launch.serve import _grow_cache as jax_grow
 from repro.launch.serve import serve as jax_serve
 from repro.models import transformer as JT
-from repro_torch.configs import get_config, list_configs
+from repro_torch.configs import get_config
 from repro_torch.configs.base import MAMBA, SHAPES
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import ops
@@ -202,7 +203,7 @@ def _port_leaves(tree):
             for path, t in leaves_with_paths(tree)]
 
 
-@pytest.mark.parametrize("name", sorted(list_configs())
+@pytest.mark.parametrize("name", sorted(jax_list_configs())
                          + ["hymba-1.5b+mamba"])
 def test_specs_match_the_reference_input_specs(name):
     """Every input of the four shapes, tree, shapes and dtypes, as the

@@ -43,11 +43,12 @@ from jax.sharding import AbstractMesh
 import torch_ranks
 from repro.configs import SHAPES as JSHAPES
 from repro.configs import get_config as jax_get_config
+from repro.configs import list_configs as jax_list_configs
 from repro.core import roofline as jroof
 from repro.core.structure import parse_hlo as jparse
 from repro.distributed import sharding as jshard
 from repro.launch import specs as jspecs
-from repro_torch.configs import SHAPES, get_config, list_configs
+from repro_torch.configs import SHAPES, get_config
 from repro_torch.core import roofline as troof
 from repro_torch.core import sampling
 from repro_torch.core.structure import parse_hlo as tparse
@@ -79,7 +80,7 @@ ENV = dict(os.environ, PYTHONPATH=os.pathsep.join(
         __file__))), "src")]), OMP_NUM_THREADS="1")
 
 
-@pytest.mark.parametrize("name", list_configs())
+@pytest.mark.parametrize("name", jax_list_configs())
 def test_roofline_and_model_flops_are_the_references(name, monkeypatch):
     """For every shape: ``model_flops`` equal, and ``analyze`` over the
     same cost dict, chips and module (one with each collective kind,
@@ -122,7 +123,7 @@ def _reference_bytes(jcfg, shape, mesh):
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("name", list_configs())
+@pytest.mark.parametrize("name", jax_list_configs())
 def test_argument_bytes_are_the_references(name, mesh):
     shape_, axes = MESHES[mesh]
     cfg, jcfg = get_config(name), jax_get_config(name)

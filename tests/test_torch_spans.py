@@ -109,7 +109,8 @@ def test_untraced_steps_open_no_range_and_count_nothing(monkeypatch):
     train_step(cfg, params)
     assert made == [] and counted == []
     assert moe.dispatch_counts() == dict(calls=0, capacity=0, routed=0,
-                                         dropped=0, max_load=0)
+                                         dropped=0, max_load=0,
+                                         routed_all=0)
     assert moe._COUNTS == {}
 
 
@@ -308,7 +309,8 @@ def test_dispatch_counts_equal_a_plain_recount():
     assert got == {"calls": 3, "capacity": cap,
                    "routed": sum(w[0] for w in want),
                    "dropped": sum(w[1] for w in want),
-                   "max_load": max(w[2] for w in want)}
+                   "max_load": max(w[2] for w in want),
+                   "routed_all": sum(w[0] for w in want)}
     assert got["dropped"] > 0
     moe.reset_dispatch_counts()
 
